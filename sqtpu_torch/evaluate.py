@@ -1,0 +1,241 @@
+"""Closed-loop evaluation on the card: random params -> hard ray-cast
+render -> ResNetSQ -> IoU tuple and parameter errors, batched.
+
+Counterpart of ``sqtpu/evaluate.py:39-330`` (``load_eval_state``,
+``predict``, ``eval_random``). Outputs are the same: an appended
+``results.txt`` log, ``accs.npz`` with the same keys, and the same printed
+summary. The random stream is torch's, not ``jax.random``'s, so the
+sampled shapes differ from the JAX package's run with the same seed.
+
+Usage::
+
+    python -m sqtpu_torch.evaluate --ckpt-dir artifacts/resnet_sq_c4_fp16.npz \
+        --n 1000 --batch-size 125 --out-dir eval_out [--device cpu]
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from sqtpu_torch.data.labels import denormalize_torch
+from sqtpu_torch.data.synthetic import sample_params
+from sqtpu_torch.models import build_model, params_vector
+from sqtpu_torch.ops import metrics
+from sqtpu_torch.ops.kernels import render_hard_auto
+from sqtpu_torch.utils.checkpoint import load_weights_npz
+from sqtpu_torch.utils.config import (
+    EvalConfig, check_slice, parse_cli, resolve_device,
+)
+
+# eval-quality sweep of the ground-truth renderer (sqtpu/evaluate.py:157)
+EVAL_SWEEP, EVAL_BISECT = 64, 16
+
+
+def load_eval_state(cfg, device: torch.device) -> torch.nn.Module:
+    """The model of ``cfg.model`` in eval mode on ``device``, with the
+    weights of the ``.npz`` at ``cfg.ckpt_dir``; random weights (seeded)
+    with a warning when there is no such file."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)  # the random init, if it is kept, is seeded
+        model = build_model(cfg.model)
+    if cfg.ckpt_dir.endswith(".npz"):
+        load_weights_npz(cfg.ckpt_dir, model)
+    elif os.path.exists(os.path.join(cfg.ckpt_dir, "best")):
+        raise NotImplementedError(
+            f"{cfg.ckpt_dir} is an Orbax checkpoint; the port reads the "
+            "portable .npz weights (Orbax restore: ROADMAP.md Slice A5)")
+    else:
+        print(f"[warn] no weights at {cfg.ckpt_dir}; using random init",
+              file=sys.stderr)
+    return model.to(device).eval()
+
+
+@torch.inference_mode()
+def predict(model: torch.nn.Module, imgs: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 1) or (B, H, W) images -> (B, 12) params (eval mode)."""
+    return params_vector(model(imgs))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.inference_mode()
+def eval_random(cfg: EvalConfig) -> dict:
+    """The closed loop over ``cfg.n`` random shapes in batches of
+    ``cfg.batch_size``: per batch, sample the reference eval distribution,
+    render ground-truth depth (K3 on the card), predict, and score with
+    the IoU tuple at ``acc_render_size``³ and per-parameter MAE."""
+    check_slice(cfg)
+    device = resolve_device(cfg.device)
+    model = load_eval_state(cfg, device)
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg.seed)
+
+    def batch_eval():
+        p_true = sample_params(cfg.batch_size, gen, device=device)
+        imgs = render_hard_auto(p_true, cfg.image_size, n_sweep=EVAL_SWEEP,
+                                n_bisect=EVAL_BISECT, quantize=True)[..., None]
+        p_pred = predict(model, imgs)
+        triple = metrics.iou_full(p_true, p_pred, cfg.acc_render_size)
+        mae = torch.abs(p_pred - p_true)
+        # MAE against the gauge-aligned truth, its quaternion flipped to
+        # the prediction's hemisphere (q and -q are one rotation)
+        aligned, _ = metrics.gauge_align(p_true, p_pred)
+        qdot = torch.sum(aligned[..., 8:12] * p_pred[..., 8:12], dim=-1,
+                         keepdim=True)
+        qa = torch.where(qdot < 0, -aligned[..., 8:12], aligned[..., 8:12])
+        aligned = torch.cat([aligned[..., :8], qa], dim=-1)
+        mae_gauge = torch.abs(p_pred - aligned)
+        return p_true, p_pred, triple, mae, mae_gauge, imgs
+
+    all_triples, all_mae, all_mae_g, all_true, all_pred = [], [], [], [], []
+    n_batches = (cfg.n + cfg.batch_size - 1) // cfg.batch_size
+    latencies = []
+    with open(os.path.join(cfg.out_dir, cfg.results_file), "a") as f:
+        for b in range(n_batches):
+            t0 = time.perf_counter()
+            out = batch_eval()
+            p_true, p_pred, triple, mae, mae_g = (
+                x.cpu().numpy() for x in out[:5])
+            imgs = out[5]
+            if b > 0:  # the first batch pays the kernel build and warm-up
+                latencies.append((time.perf_counter() - t0) / cfg.batch_size)
+            all_triples.append(triple)
+            all_mae.append(mae)
+            all_mae_g.append(mae_g)
+            all_true.append(p_true)
+            all_pred.append(p_pred)
+            for i in range(triple.shape[0]):
+                idx = b * cfg.batch_size + i
+                if idx >= cfg.n:
+                    break
+                print(f"---------- Example {idx} ----------", file=f)
+                print("True params:", denormalize_torch(p_true[i]), file=f)
+                print("Pred params:", denormalize_torch(p_pred[i]), file=f)
+                print("- Accuracy:", triple[i] * 100, file=f)
+
+    # predict-only latency on the last batch's images, batch 1 and batched
+    predict_latency = {}
+    for name, x in (("batch1", imgs[:1]), (f"batch{cfg.batch_size}", imgs)):
+        predict(model, x)  # warm
+        _sync(device)
+        t0 = time.perf_counter()
+        reps = 10
+        for _ in range(reps):
+            predict(model, x)
+        _sync(device)
+        predict_latency[name] = (time.perf_counter() - t0) / (reps
+                                                              * x.shape[0])
+
+    triples = np.concatenate(all_triples)[: cfg.n]
+    maes = np.concatenate(all_mae)[: cfg.n]
+    maes_g = np.concatenate(all_mae_g)[: cfg.n]
+    trues = np.concatenate(all_true)[: cfg.n]
+    preds = np.concatenate(all_pred)[: cfg.n]
+    rot_iou, full_iou = triples[:, 0], triples[:, 1]
+    ang, ang_sym = triples[:, 2], triples[:, 3]
+    ang_gauge, rot_iou_gauge = triples[:, 4], triples[:, 5]
+    gauge_swapped = triples[:, 6]
+
+    # rotation about an axis is unobservable when the other two sizes are
+    # (near-)equal: bin by the smallest pairwise size gap
+    a_true = trues[:, 0:3]
+    asym = np.min(np.abs(a_true[:, [0, 0, 1]] - a_true[:, [1, 2, 2]]),
+                  axis=1)
+    elong = a_true.max(axis=1) / a_true.min(axis=1)
+    order = np.argsort(asym)
+    strat = []
+    for idx in np.array_split(order, min(4, order.size)):
+        strat.append({
+            "asym_lo": float(asym[idx].min()),
+            "asym_hi": float(asym[idx].max()),
+            "angle_sym": float(ang_sym[idx].mean()),
+            "angle_gauge": float(ang_gauge[idx].mean()),
+            "rot_iou": float(rot_iou[idx].mean()),
+            "rot_iou_gauge": float(rot_iou_gauge[idx].mean()),
+            "full_iou": float(full_iou[idx].mean()),
+            "n": int(idx.size)})
+    print("--Rot::")
+    print("Mean: ", rot_iou.mean())
+    print("Std: ", rot_iou.std())
+    print("--Full::")
+    print("Mean: ", full_iou.mean())
+    print("Std: ", full_iou.std())
+    print("--Angle err (rad)::")
+    print("Mean: ", ang.mean())
+    print("--Angle err mod D2 symmetry (rad)::")
+    print("Mean: ", ang_sym.mean())
+    print("--Angle err mod FULL D4 gauge (rad)::")
+    print("Mean: ", ang_gauge.mean())
+    print("--Rot-IoU vs gauge-aligned decomposition::")
+    print("Mean: ", rot_iou_gauge.mean())
+    print(f"--Gauge-swapped predictions (a1<->a2 + z quarter-turn): "
+          f"{100.0 * gauge_swapped.mean():.1f}%")
+    print("--Param MAE (12)::")
+    print(maes.mean(axis=0))
+    print("--Param MAE vs gauge-aligned truth (12; quat columns "
+          "meaningful)::")
+    print(maes_g.mean(axis=0))
+    print("--Rotation metrics by shape asymmetry (quartiles of "
+          "min pairwise |a_i - a_j|, normalized units)::")
+    print(f"{'quartile':>9} {'asym range':>17} {'angle_sym':>10} "
+          f"{'ang_gauge':>10} {'rot_iou':>8} {'rotIoU_g':>9} "
+          f"{'full_iou':>9} {'n':>5}")
+    for qi, s in enumerate(strat):
+        print(f"{qi:>9} [{s['asym_lo']:.4f}, {s['asym_hi']:.4f}] "
+              f"{s['angle_sym']:>10.3f} {s['angle_gauge']:>10.3f} "
+              f"{s['rot_iou']:>8.3f} {s['rot_iou_gauge']:>9.3f} "
+              f"{s['full_iou']:>9.3f} {s['n']:>5}")
+    if latencies:
+        print(f"--Per-image latency (render+predict+score): "
+              f"{1e3 * float(np.mean(latencies)):.3f} ms")
+    for name, lat in predict_latency.items():
+        print(f"--Per-image latency (predict only, {name}): "
+              f"{1e3 * lat:.3f} ms")
+    np.savez(os.path.join(cfg.out_dir, "accs.npz"),
+             rot_iou=rot_iou, full_iou=full_iou, angle=ang,
+             angle_sym=ang_sym, angle_gauge=ang_gauge,
+             rot_iou_gauge=rot_iou_gauge, gauge_swapped=gauge_swapped,
+             mae=maes, mae_gauge=maes_g,
+             true_params=trues, pred_params=preds,
+             asym=asym, elongation=elong,
+             predict_latency_batched_s=predict_latency[
+                 f"batch{cfg.batch_size}"],
+             predict_latency_batched_size=cfg.batch_size,
+             predict_latency_batch1_s=predict_latency["batch1"],
+             predict_latency_note=np.str_(
+                 f"host clock around {device.type} work ending in a "
+                 "synchronize; batch1 is one call per image"))
+    return {"rot_iou_mean": float(rot_iou.mean()),
+            "full_iou_mean": float(full_iou.mean()),
+            "angle_mean": float(ang.mean()),
+            "angle_sym_mean": float(ang_sym.mean()),
+            "angle_gauge_mean": float(ang_gauge.mean()),
+            "rot_iou_gauge_mean": float(rot_iou_gauge.mean()),
+            "gauge_swapped_frac": float(gauge_swapped.mean()),
+            "by_asymmetry_quartile": strat,
+            "predict_latency_ms": {k: 1e3 * v
+                                   for k, v in predict_latency.items()},
+            "param_mae": maes.mean(axis=0).tolist(),
+            "param_mae_gauge": maes_g.mean(axis=0).tolist()}
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "single" in argv:
+        raise NotImplementedError(
+            "single-image evaluation is not ported yet: ROADMAP.md Slice C1 "
+            "(eval_single)")
+    eval_random(parse_cli(EvalConfig, argv))
+
+
+if __name__ == "__main__":
+    main()

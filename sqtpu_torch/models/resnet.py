@@ -1,0 +1,121 @@
+"""ResNet-18 backbone and the ResNetSQ regressor in PyTorch.
+
+Counterpart of ``sqtpu/models/resnet.py:24-116``. Public inputs keep the
+JAX package's NHWC layout, (B, H, W, 1) or (B, H, W); the model converts
+to NCHW inside. Submodule names follow the flax names, so a flat flax
+weight file maps onto the ``state_dict`` key by key
+(:func:`sqtpu_torch.utils.checkpoint.state_dict_from_flax`).
+
+Padding matches the JAX model: explicit (1, 1) on every 3x3 convolution,
+stride 2 included; (3, 3) on the 7x7 stem; the max pool pads (1, 1) with
+−inf. BatchNorm uses eps 1e-5 and torch momentum 0.01 (flax's 0.99);
+only eval mode is held against the JAX package so far.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sqtpu_torch.models.heads import (
+    PositionHead, RotationHead, ShapeHead, SizeHead,
+)
+
+BN_EPS = 1e-5
+BN_MOMENTUM = 0.01  # torch convention: 1 - flax's 0.99
+
+
+def _bn(features: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+class BasicBlock(nn.Module):
+    """ResNet v1 basic block (3x3 + 3x3, projection shortcut on stride or
+    width change)."""
+
+    def __init__(self, in_features: int, features: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_features, features, 3, stride, padding=1,
+                               bias=False)
+        self.bn1 = _bn(features)
+        self.conv2 = nn.Conv2d(features, features, 3, 1, padding=1,
+                               bias=False)
+        self.bn2 = _bn(features)
+        self.project = stride != 1 or in_features != features
+        if self.project:
+            self.downsample_conv = nn.Conv2d(in_features, features, 1,
+                                             stride, bias=False)
+            self.downsample_bn = _bn(features)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x
+        if self.project:
+            residual = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(y + residual)
+
+
+class ResNet18(nn.Module):
+    """ResNet-18 feature extractor: NCHW grayscale -> (B, 512) after a
+    global average pool."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
+                 widths: Sequence[int] = (64, 128, 256, 512),
+                 in_channels: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, padding=3, bias=False)
+        self.bn1 = _bn(64)
+        self.block_names = []
+        cin = 64
+        for stage, (n_blocks, width) in enumerate(zip(stage_sizes, widths)):
+            for block in range(n_blocks):
+                stride = 2 if (stage > 0 and block == 0) else 1
+                name = f"layer{stage + 1}_{block}"
+                self.add_module(name, BasicBlock(cin, width, stride))
+                self.block_names.append(name)
+                cin = width
+        self.out_features = cin
+
+    def forward(self, x):
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, padding=1)  # pads with -inf
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        return torch.mean(x, dim=(2, 3))
+
+
+class ResNetSQ(nn.Module):
+    """ResNet18 -> MLP(256, 256) -> four heads. Returns
+    ``(size, shape, position, quaternion)``."""
+
+    def __init__(self, fcn: int = 256):
+        super().__init__()
+        self.encoder = ResNet18()
+        self.fc1 = nn.Linear(self.encoder.out_features, fcn)
+        self.fc2 = nn.Linear(fcn, fcn)
+        self.head_size = SizeHead(fcn)
+        self.head_shape = ShapeHead(fcn)
+        self.head_position = PositionHead(fcn)
+        self.head_rotation = RotationHead(fcn)
+
+    def forward(self, x):
+        """``x``: (B, H, W, 1) or (B, H, W) depth images in [0, 1]."""
+        if x.ndim == 3:
+            x = x[..., None]
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        h = F.leaky_relu(self.fc1(self.encoder(x)), 0.01)
+        h = F.leaky_relu(self.fc2(h), 0.01)
+        return (self.head_size(h), self.head_shape(h),
+                self.head_position(h), self.head_rotation(h))
+
+
+def params_vector(outputs) -> torch.Tensor:
+    """The 4-tuple model output -> the (B, 12) canonical vector; a single
+    (B, k) tensor passes through."""
+    if isinstance(outputs, (tuple, list)):
+        return torch.cat(outputs, dim=-1)
+    return outputs

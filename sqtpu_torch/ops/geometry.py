@@ -1,0 +1,145 @@
+"""Superquadric geometry in PyTorch: parameter layout, grids, and the
+inside-outside field.
+
+Counterpart of ``sqtpu/ops/geometry.py`` (:54-190, :391-412). Every
+function works on the canonical 12-vector
+``[a1,a2,a3, e1,e2, t1,t2,t3, qx,qy,qz,qw]`` (normalized units: a, t in
+[0, 1] ~ /255 world units) and broadcasts over a leading batch dimension
+where the JAX package would ``vmap``.
+
+The field follows the torch reference convention:
+``F = (((x²)^(1/e2) + (y²)^(1/e2))^(e2/e1) + (z²)^(1/e1))^(e1)``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from sqtpu_torch.ops import quaternion as quat
+
+SIZE_SLICE = slice(0, 3)
+SHAPE_SLICE = slice(3, 5)
+POS_SLICE = slice(5, 8)
+QUAT_SLICE = slice(8, 12)
+N_PARAMS = 12
+
+A_MIN, A_MAX = 0.05, 1.0
+E_MIN, E_MAX = 0.1, 1.0
+T_MIN, T_MAX = 0.0, 1.0
+
+
+class SQParams(NamedTuple):
+    """Unpacked superquadric parameters (each (..., k))."""
+
+    a: torch.Tensor  # (..., 3) sizes
+    e: torch.Tensor  # (..., 2) shape exponents
+    t: torch.Tensor  # (..., 3) position
+    q: torch.Tensor  # (..., 4) xyzw unit quaternion
+
+
+def split_params(p: torch.Tensor) -> SQParams:
+    """(..., 12) -> SQParams."""
+    return SQParams(a=p[..., SIZE_SLICE], e=p[..., SHAPE_SLICE],
+                    t=p[..., POS_SLICE], q=p[..., QUAT_SLICE])
+
+
+def join_params(sq: SQParams) -> torch.Tensor:
+    return torch.cat([sq.a, sq.e, sq.t, sq.q], dim=-1)
+
+
+def clamp_params(p: torch.Tensor) -> torch.Tensor:
+    """a ∈ [0.05, 1], e ∈ [0.1, 1], t ∈ [0, 1]; quaternion untouched."""
+    a, e, t, q = split_params(p)
+    return join_params(SQParams(a=a.clamp(A_MIN, A_MAX),
+                                e=e.clamp(E_MIN, E_MAX),
+                                t=t.clamp(T_MIN, T_MAX), q=q))
+
+
+def make_axis(n: int, kind: str, dtype=torch.float32,
+              device=None) -> torch.Tensor:
+    """1-D coordinate axis for the voxelized [0,1]³ space.
+
+    ``"explicit"``: N+1 points k/N with the zero nudged to 1e-4;
+    ``"implicit"``: N points linspace(0, 1, N), zero nudged;
+    ``"iou"``: N points linspace(0, 1, N), no nudge.
+    """
+    if kind == "explicit":
+        ax = torch.arange(n + 1, dtype=dtype, device=device) / n
+    elif kind in ("implicit", "iou"):
+        # k · (1/(N-1)) with the end point exactly 1: what jnp.linspace(0,
+        # 1, N) computes, to the last bit (torch.linspace rounds otherwise)
+        recip = torch.ones((), dtype=dtype, device=device) / max(n - 1, 1)
+        ax = torch.cat([torch.arange(n - 1, dtype=dtype, device=device)
+                        * recip, torch.ones(1, dtype=dtype, device=device)])
+    else:
+        raise ValueError(f"unknown grid kind: {kind}")
+    if kind == "iou":
+        return ax
+    return torch.where(ax == 0, torch.full_like(ax, 1e-4), ax)
+
+
+def _power_chain(x2, y2, z2, e1, e2, *, guard: bool):
+    """Squared body coordinates -> F^(e1).
+
+    ``guard`` adds 1e-4 at exact zeros of the squared coordinates (the
+    losses' guard; the IoU omits it). The dtype's smallest normal is
+    added inside both outer powers so an fp32 underflow of the inner
+    powers never yields 0^(negative) in a gradient.
+    """
+    if guard:
+        x2 = x2 + (x2 == 0).to(x2.dtype) * 1e-4
+        y2 = y2 + (y2 == 0).to(y2.dtype) * 1e-4
+        z2 = z2 + (z2 == 0).to(z2.dtype) * 1e-4
+    A = torch.pow(x2, 1.0 / e2)
+    B = torch.pow(y2, 1.0 / e2)
+    C = torch.pow(z2, 1.0 / e1)
+    tiny = torch.finfo(x2.dtype).tiny
+    E = torch.pow(A + B + tiny, e2 / e1)
+    return torch.pow(E + C + tiny, e1)
+
+
+def _rotated_frame(p: torch.Tensor):
+    """Sizes, exponents, R(q*)·t and R(q*): the reference rotates the
+    space, not the superquadric."""
+    a, e, t, q = split_params(p)
+    rot = quat.to_matrix(quat.conjugate(q))  # (..., 3, 3)
+    tr = torch.einsum("...ij,...j->...i", rot, t)
+    return a, e, tr, rot
+
+
+def field_grid(ax_x: torch.Tensor, ax_y: torch.Tensor, ax_z: torch.Tensor,
+               p: torch.Tensor, *, guard: bool = True) -> torch.Tensor:
+    """F^(e1) on a separable grid: (Nx, Ny, Nz) for p of shape (12,),
+    (B, Nx, Ny, Nz) for p of shape (B, 12)."""
+    a, e, tr, rot = _rotated_frame(p)
+    lead = p.shape[:-1]
+    pad = (1,) * 3
+
+    def s(v):  # a per-sample scalar, broadcast over the grid
+        return v.reshape(lead + pad)
+
+    X = ax_x[:, None, None]
+    Y = ax_y[None, :, None]
+    Z = ax_z[None, None, :]
+    coord = []
+    for i in range(3):
+        c = s(rot[..., i, 0]) * X + s(rot[..., i, 1]) * Y \
+            + s(rot[..., i, 2]) * Z
+        coord.append(((c - s(tr[..., i])) / s(a[..., i])) ** 2)
+    return _power_chain(*coord, s(e[..., 0]), s(e[..., 1]), guard=guard)
+
+
+def z_support_window(a: torch.Tensor, rot: torch.Tensor, t: torch.Tensor,
+                     n_sweep: int):
+    """(z_lo, z_hi, step) of the renderer's bounded z-sweep: the support
+    of the body box [-a, a] along world z, clipped to [0, 1]."""
+    h = (torch.abs(rot[..., 0, 2]) * a[..., 0]
+         + torch.abs(rot[..., 1, 2]) * a[..., 1]
+         + torch.abs(rot[..., 2, 2]) * a[..., 2])
+    z_lo = torch.clamp(t[..., 2] - h, 0.0, 1.0)
+    z_hi = torch.minimum(torch.maximum(t[..., 2] + h, z_lo + 1e-6),
+                         torch.ones_like(z_lo))
+    step = (z_hi - z_lo) / (n_sweep - 1)
+    return z_lo, z_hi, step

@@ -1,0 +1,74 @@
+"""Quaternion algebra in PyTorch, xyzw layout (w last).
+
+Counterpart of ``sqtpu/ops/quaternion.py``: the same conventions (Hamilton
+product, w last, ``to_matrix(q) @ p`` rotates ``p`` by ``q``), dtype
+preserving and broadcasting over leading batch dimensions. Only the
+functions the evaluation and serving path needs are here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product q1 * q2 in xyzw layout; broadcasts over leading dims."""
+    x1, y1, z1, w1 = q1.unbind(-1)
+    x2, y2, z2, w2 = q2.unbind(-1)
+    x = x1 * w2 + y1 * z2 - z1 * y2 + w1 * x2
+    y = -x1 * z2 + y1 * w2 + z1 * x2 + w1 * y2
+    z = x1 * y2 - y1 * x2 + z1 * w2 + w1 * z2
+    w = -x1 * x2 - y1 * y2 - z1 * z2 + w1 * w2
+    return torch.stack([x, y, z, w], dim=-1)
+
+
+def conjugate(q: torch.Tensor) -> torch.Tensor:
+    """(-x, -y, -z, w)."""
+    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+
+
+def to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion -> 3x3 rotation matrix, shape (..., 3, 3)."""
+    x, y, z, w = q.unbind(-1)
+    tx, ty, tz = 2.0 * x, 2.0 * y, 2.0 * z
+    twx, twy, twz = tx * w, ty * w, tz * w
+    txx, txy, txz = tx * x, ty * x, tz * x
+    tyy, tyz = ty * y, tz * y
+    tzz = tz * z
+    m = torch.stack(
+        [
+            1.0 - (tyy + tzz), txy - twz, txz + twy,
+            txy + twz, 1.0 - (txx + tzz), tyz - twx,
+            txz - twy, tyz + twx, 1.0 - (txx + tyy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def to_magnitude(q: torch.Tensor) -> torch.Tensor:
+    """Rotation angle of q: 2·atan2(‖xyz‖, w)."""
+    return 2.0 * torch.atan2(torch.linalg.vector_norm(q[..., :3], dim=-1),
+                             q[..., 3])
+
+
+def random_uniform(shape: tuple, generator: torch.Generator,
+                   dtype=torch.float32, device=None) -> torch.Tensor:
+    """Shoemake-uniform random unit quaternions, shape ``shape + (4,)``,
+    drawn from ``generator`` (same distribution as the JAX package's
+    ``random_uniform``; not the same numbers)."""
+    u = torch.rand(tuple(shape) + (3,), generator=generator, dtype=dtype,
+                   device=device)
+    u0, u1, u2 = u.unbind(-1)
+    two_pi = 2.0 * math.pi
+    return torch.stack(
+        [
+            torch.sqrt(1.0 - u0) * torch.sin(two_pi * u1),
+            torch.sqrt(1.0 - u0) * torch.cos(two_pi * u1),
+            torch.sqrt(u0) * torch.sin(two_pi * u2),
+            torch.sqrt(u0) * torch.cos(two_pi * u2),
+        ],
+        dim=-1,
+    )
