@@ -1,10 +1,11 @@
-"""Random superquadric parameters for the closed-loop evaluation.
+"""Synthetic data made on the device: random superquadric parameters and
+their depth maps.
 
-Counterpart of ``sample_params`` in ``sqtpu/data/synthetic.py:27-57``:
-a ~ U(25, 75)/255, e ~ U(0.1, 1.0), t ~ (128 + U(−40, 40))/255, q
-Shoemake-uniform, then the canonical gauge a1 >= a2. The numbers come
-from a ``torch.Generator``, so they differ from ``jax.random``'s; the
-distribution is the same.
+Counterpart of ``sample_params`` and ``make_batch`` in
+``sqtpu/data/synthetic.py:27-100``: a ~ U(25, 75)/255, e ~ U(0.1, 1.0),
+t ~ (128 + U(−40, 40))/255, q Shoemake-uniform, then the canonical gauge
+a1 >= a2. The numbers come from a ``torch.Generator``, so they differ from
+``jax.random``'s; the distribution is the same.
 """
 
 from __future__ import annotations
@@ -12,7 +13,9 @@ from __future__ import annotations
 import torch
 
 from sqtpu_torch.ops import quaternion as quat
+from sqtpu_torch.ops.kernels import render_hard_auto
 from sqtpu_torch.ops.losses import canonicalize_gauge
+from sqtpu_torch.ops.render import render_depth_soft_batch
 
 
 def _uniform(shape, lo, hi, generator, dtype, device):
@@ -34,3 +37,25 @@ def sample_params(batch: int, generator: torch.Generator,
     q = quat.random_uniform((batch,), generator, dtype, device)
     p = torch.cat([a, e, t, q], dim=-1)
     return canonicalize_gauge(p) if canonical else p
+
+
+def make_batch(generator: torch.Generator, batch: int, image_size: int = 256,
+               renderer: str = "hard", iso: bool = False):
+    """One (images, labels) batch on the generator's device: images
+    (B, S, S, 1) depth maps in [0, 1], labels (B, 12). ``hard`` renders
+    with the ray-cast renderer at the training sweep (48 slabs, 12
+    bisections, quantized; K3 on the card); ``soft`` with the soft
+    renderer at τ 1.5, sharpness 260."""
+    if iso:
+        raise NotImplementedError(
+            "iso data is not ported yet: ROADMAP.md Slice F (the 2019 "
+            "isometric models)")
+    p = sample_params(batch, generator)
+    if renderer == "hard":
+        imgs = render_hard_auto(p, image_size, n_sweep=48, n_bisect=12,
+                                quantize=True)
+    elif renderer == "soft":
+        imgs = render_depth_soft_batch(p, image_size, 1.5, 260.0)
+    else:
+        raise ValueError(f"unknown renderer {renderer}")
+    return imgs[..., None], p

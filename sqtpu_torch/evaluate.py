@@ -27,9 +27,11 @@ from sqtpu_torch.data.synthetic import sample_params
 from sqtpu_torch.models import build_model, params_vector
 from sqtpu_torch.ops import metrics
 from sqtpu_torch.ops.kernels import render_hard_auto
-from sqtpu_torch.utils.checkpoint import load_weights_npz
+from sqtpu_torch.utils.checkpoint import (
+    checkpoint_exists, load_config, load_model_state, load_weights_npz,
+)
 from sqtpu_torch.utils.config import (
-    EvalConfig, check_slice, parse_cli, resolve_device,
+    EvalConfig, TrainConfig, check_slice, parse_cli, resolve_device,
 )
 
 # eval-quality sweep of the ground-truth renderer (sqtpu/evaluate.py:157)
@@ -37,18 +39,27 @@ EVAL_SWEEP, EVAL_BISECT = 64, 16
 
 
 def load_eval_state(cfg, device: torch.device) -> torch.nn.Module:
-    """The model of ``cfg.model`` in eval mode on ``device``, with the
-    weights of the ``.npz`` at ``cfg.ckpt_dir``; random weights (seeded)
-    with a warning when there is no such file."""
+    """A model in eval mode on ``device``: ``cfg.model`` with the weights
+    of the ``.npz`` at ``cfg.ckpt_dir``, or the model of a port training
+    run's ``<ckpt_dir>/best`` checkpoint (built from the config it
+    embeds); random weights (seeded) with a warning when there is
+    neither."""
+    best = os.path.join(cfg.ckpt_dir, "best")
+    name = cfg.model
+    if checkpoint_exists(best):
+        name = load_config(best, TrainConfig).model
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)  # the random init, if it is kept, is seeded
-        model = build_model(cfg.model)
+        model = build_model(name)
     if cfg.ckpt_dir.endswith(".npz"):
         load_weights_npz(cfg.ckpt_dir, model)
-    elif os.path.exists(os.path.join(cfg.ckpt_dir, "best")):
+    elif checkpoint_exists(best):
+        load_model_state(best, model)
+    elif os.path.exists(best):
         raise NotImplementedError(
-            f"{cfg.ckpt_dir} is an Orbax checkpoint; the port reads the "
-            "portable .npz weights (Orbax restore: ROADMAP.md Slice A5)")
+            f"{cfg.ckpt_dir} is an Orbax checkpoint of the JAX package; "
+            "the port reads .npz weights (sqtpu.utils.checkpoint"
+            ".save_weights_npz) and its own checkpoints")
     else:
         print(f"[warn] no weights at {cfg.ckpt_dir}; using random init",
               file=sys.stderr)

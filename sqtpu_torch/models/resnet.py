@@ -8,12 +8,14 @@ weight file maps onto the ``state_dict`` key by key
 
 Padding matches the JAX model: explicit (1, 1) on every 3x3 convolution,
 stride 2 included; (3, 3) on the 7x7 stem; the max pool pads (1, 1) with
-−inf. BatchNorm uses eps 1e-5 and torch momentum 0.01 (flax's 0.99);
-only eval mode is held against the JAX package so far.
+−inf. BatchNorm follows flax in both modes (:class:`BatchNorm`), and a
+model built here starts from flax's initial distribution
+(:func:`init_like_flax`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -28,8 +30,53 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.01  # torch convention: 1 - flax's 0.99
 
 
-def _bn(features: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's train-mode semantics: the batch is
+    normalized with its biased variance (as torch does), and the running
+    variance is updated with that same biased variance, where torch would
+    use the unbiased one. Eval mode is torch's own (running statistics).
+    ``num_batches_tracked`` is left alone: flax keeps no such counter."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                var, alpha=self.momentum)
+        return y
+
+
+def _bn(features: int) -> BatchNorm:
+    return BatchNorm(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+# flax's default kernel init, lecun_normal: a normal truncated at ±2
+# standard deviations, scaled so the kept distribution has std
+# sqrt(1 / fan_in); this constant is the std of a unit normal so truncated
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_like_flax(model: nn.Module) -> nn.Module:
+    """Re-initialize ``model`` as flax initializes the JAX model:
+    convolution and dense kernels lecun_normal (fan_in = in_channels ·
+    kh · kw, or in_features), biases 0, BatchNorm scale 1 and bias 0,
+    running mean 0 and variance 1. Draws from torch's global generator."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    return model
 
 
 class BasicBlock(nn.Module):
@@ -101,6 +148,7 @@ class ResNetSQ(nn.Module):
         self.head_shape = ShapeHead(fcn)
         self.head_position = PositionHead(fcn)
         self.head_rotation = RotationHead(fcn)
+        init_like_flax(self)
 
     def forward(self, x):
         """``x``: (B, H, W, 1) or (B, H, W) depth images in [0, 1]."""

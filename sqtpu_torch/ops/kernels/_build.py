@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -76,6 +77,14 @@ def build(name: str) -> str:
     build_log[name] = {"seconds": time.perf_counter() - t0, "built": True,
                        "ptxas": res.stderr.strip()}
     return out
+
+
+def build_all(names) -> None:
+    """Build several sources at once: one ``nvcc`` process each, all
+    started together. Raises the first build's error."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        for future in [pool.submit(build, name) for name in names]:
+            future.result()
 
 
 def load(name: str) -> ctypes.CDLL:

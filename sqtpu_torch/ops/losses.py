@@ -1,7 +1,8 @@
-"""The superquadric's gauge group, in PyTorch.
+"""Losses and the superquadric's gauge group, in PyTorch.
 
-Counterpart of the gauge part of ``sqtpu/ops/losses.py`` (:166-270). The
-losses themselves belong to the training slices.
+Counterpart of ``sqtpu/ops/losses.py``: the implicit (self-supervised)
+depth loss (:38-43, :87-106) and the gauge part (:166-270). The other
+losses belong to later slices (ROADMAP.md Slices B and D).
 """
 
 from __future__ import annotations
@@ -10,6 +11,31 @@ import torch
 
 from sqtpu_torch.ops import geometry
 from sqtpu_torch.ops import quaternion as quat
+from sqtpu_torch.ops.image import nearest_resize
+from sqtpu_torch.ops.render import render_depth_soft_batch
+
+def _as_bhw(img: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) or (B, 1, H, W) images -> (B, H, W)."""
+    if img.ndim == 4:
+        return img[:, 0]
+    return img
+
+
+def implicit_loss(true_img: torch.Tensor, pred_p: torch.Tensor,
+                  render_size: int = 64, tau: float = 1.5,
+                  sharpness: float = 260.0,
+                  reduce: bool = True) -> torch.Tensor:
+    """MAE between the soft depth render of ``pred_p`` and the input image,
+    nearest-downsampled to the render size (self-supervised: labels never
+    enter). The plain PyTorch version of the kernels K1 and K2
+    (``sqtpu_torch/csrc/implicit.cu``); its gradient is torch autograd's.
+    """
+    img = _as_bhw(true_img).to(pred_p.dtype)
+    img_small = nearest_resize(img, (render_size, render_size))
+    depth = render_depth_soft_batch(pred_p, render_size, tau, sharpness)
+    per_sample = torch.mean(torch.abs(img_small - depth), dim=(1, 2))
+    return torch.mean(per_sample) if reduce else per_sample
+
 
 # xyzw quaternions of the identity and the 180° turns about each principal
 # axis: the exact D2 symmetry group of a superquadric.

@@ -1,10 +1,16 @@
-"""Hard (exact) superquadric depth renderer: the plain PyTorch version of
-the ray-cast kernel (``sqtpu_torch/csrc/hardrender.cu``).
+"""Superquadric depth renderers in PyTorch.
 
-Counterpart of ``render_depth_hard`` / ``render_depth_hard_batch`` in
-``sqtpu/ops/render.py:95-186``. Camera model: orthographic view along −z;
-image column = world x, image row counted from the bottom = world y;
-pixel value = max surface z along the ray; background 0.
+Counterpart of ``sqtpu/ops/render.py``:
+
+* the soft, differentiable transmittance render (:29-90) behind the
+  implicit loss: occupancy sigmoid(sharpness·(1 − F)) on an N³ grid, a
+  far→near cumulative sum along z, depth = 1 − Σ exp(−τ·cum) / N;
+* the hard (exact) ray-cast render (:95-186), the plain PyTorch version
+  of the kernel ``sqtpu_torch/csrc/hardrender.cu``.
+
+Camera model: orthographic view along −z; image column = world x, image
+row counted from the bottom = world y; pixel value = max surface z along
+the ray; background 0.
 """
 
 from __future__ import annotations
@@ -13,6 +19,46 @@ import torch
 
 from sqtpu_torch.ops import geometry
 from sqtpu_torch.ops import quaternion as quat
+
+
+def _depth_from_field(inout: torch.Tensor, tau, sharpness,
+                      n: int) -> torch.Tensor:
+    """F^(e1) on an (..., Nx, Ny, Nz) grid -> (..., rows, cols) depth in
+    image layout (row 0 = top): occupancy sigmoid, cumulative sum over z
+    from the far end, exponential transmittance, then (x, y) -> (row,
+    col) with the row axis flipped."""
+    occ = torch.sigmoid(sharpness * (1.0 - inout))
+    cum = torch.cumsum(torch.flip(occ, dims=(-1,)), dim=-1)
+    depth = 1.0 - torch.sum(torch.exp(-tau * cum), dim=-1) / n
+    return torch.flip(depth.transpose(-1, -2), dims=(-2,))
+
+
+def depth_from_axes(ax_x, ax_y, ax_z, p, tau, sharpness,
+                    n: int) -> torch.Tensor:
+    """Clamped params + grid axes -> depth in image layout, (rows,
+    len(ax_x)) for p of shape (12,), with a leading batch dimension for
+    p of shape (B, 12)."""
+    f = geometry.field_grid(ax_x, ax_y, ax_z, p, guard=True)
+    return _depth_from_field(f, tau, sharpness, n)
+
+
+def render_depth_soft(p: torch.Tensor, render_size: int = 64,
+                      tau: float = 1.5, sharpness: float = 260.0, *,
+                      clamp: bool = True, dtype=None) -> torch.Tensor:
+    """Soft differentiable depth render, values in [0, 1]: (N, N) for p
+    of shape (12,), (B, N, N) for p of shape (B, 12)."""
+    dtype = p.dtype if dtype is None else dtype
+    ax = geometry.make_axis(render_size, "implicit", dtype=dtype,
+                            device=p.device)
+    pp = geometry.clamp_params(p) if clamp else p
+    return depth_from_axes(ax, ax, ax, pp, tau, sharpness, render_size)
+
+
+def render_depth_soft_batch(p: torch.Tensor, render_size: int = 64,
+                            tau: float = 1.5,
+                            sharpness: float = 260.0) -> torch.Tensor:
+    """(B, 12) params -> (B, N, N) soft depth renders."""
+    return render_depth_soft(p, render_size, tau, sharpness)
 
 
 def render_depth_hard_batch(p: torch.Tensor, image_size: int = 256,

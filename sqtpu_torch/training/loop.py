@@ -1,0 +1,377 @@
+"""The training loop of the port: self-supervised ResNetSQ with the implicit
+loss, on data rendered on the device.
+
+Counterpart of ``sqtpu/training/loop.py`` (:79-105, :246-749) for the
+``implicit`` loss. One train step runs the model in train mode, the loss
+(K1 forward and K2 backward on the card, through ``implicit_loss_auto``),
+the backward and the Adam update; the data are rendered on the device by
+the hard ray-caster (K3). Training data come from a resident uint8
+dataset rendered once (``data="synthetic"``) or are rendered afresh for
+every step (``data="online"``).
+
+The random streams are torch generators on the device, one per purpose:
+the resident dataset, each epoch's training batches, and a validation
+stream re-seeded every epoch so validation batches are identical across
+epochs (the JAX package's fixed validation key). The same seed gives
+other shapes than ``jax.random`` does.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sqtpu_torch.data.bmp import write_bmp
+from sqtpu_torch.data.synthetic import make_batch
+from sqtpu_torch.models import build_model, params_vector
+from sqtpu_torch.ops import losses, metrics
+from sqtpu_torch.ops.kernels import implicit_loss_auto, render_hard_auto
+from sqtpu_torch.training.lr import ReduceLROnPlateau, step_schedule_2019
+from sqtpu_torch.training.state import (
+    TrainState, create_train_state, get_lr, set_lr,
+)
+from sqtpu_torch.utils.checkpoint import (
+    checkpoint_exists, load_checkpoint, load_config, load_weights_npz,
+    save_checkpoint,
+)
+from sqtpu_torch.utils.config import TrainConfig, check_slice, resolve_device
+from sqtpu_torch.utils.logging import MetricLogger, NanGuard, Throughput
+
+# Offsets of the random streams under one seed.
+_DATA_STREAM, _VAL_STREAM, _TRAIN_STREAM = 0, 1, 2
+
+
+def _generator(device: torch.device, seed: int, stream: int,
+               epoch: int = 0) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed * 1_000_003 + stream + epoch)
+    return gen
+
+
+def _compute_loss(cfg: TrainConfig, pred, imgs, labels):
+    """The ``implicit`` branch of the JAX package's loss selection; the
+    other losses raise in :func:`check_slice` before training starts."""
+    if cfg.loss != "implicit":
+        raise NotImplementedError(f"loss {cfg.loss!r} is not ported yet "
+                                  "(see ROADMAP.md)")
+    if cfg.use_pallas:
+        return implicit_loss_auto(imgs[..., 0], pred, cfg.render_size,
+                                  cfg.tau, cfg.sigmoid_sharpness)
+    return losses.implicit_loss(imgs[..., 0], pred, cfg.render_size,
+                                cfg.tau, cfg.sigmoid_sharpness)
+
+
+def make_train_step(state: TrainState, cfg: TrainConfig):
+    """The train step: model in train mode -> params vector -> loss ->
+    backward -> (clip) -> Adam. Returns the loss, detached.
+
+    ``nan_policy="skip"`` discards the whole update when the loss is not
+    finite: the BatchNorm running statistics the forward already moved are
+    put back, and no backward or optimizer step runs (parameters and Adam
+    moments stay as they were). That check reads the loss on the host
+    once per step."""
+    model = state.model
+    skip_nonfinite = cfg.nan_policy == "skip"
+
+    def step(imgs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        model.train()
+        imgs = imgs.to(torch.float32)
+        if skip_nonfinite:
+            saved = [b.detach().clone() for b in model.buffers()]
+        state.optimizer.zero_grad(set_to_none=True)
+        pred = params_vector(model(imgs))
+        loss = _compute_loss(cfg, pred, imgs, labels)
+        if skip_nonfinite and not bool(torch.isfinite(loss)):
+            with torch.no_grad():
+                for b, s in zip(model.buffers(), saved):
+                    b.copy_(s)
+            return loss.detach()
+        loss.backward()
+        state.apply_gradients()
+        return loss.detach()
+
+    return step
+
+
+def make_eval_step(state: TrainState, cfg: TrainConfig):
+    """Validation: eval mode; the loss, the IoU at ``acc_render_size``³
+    and the mean rotation error modulo the D2 symmetry."""
+    model = state.model
+
+    @torch.no_grad()
+    def step(imgs: torch.Tensor, labels: torch.Tensor):
+        model.eval()
+        imgs = imgs.to(torch.float32)
+        pred = params_vector(model(imgs))
+        loss = _compute_loss(cfg, pred, imgs, labels)
+        acc = metrics.iou(labels, pred, cfg.acc_render_size)
+        ang = torch.mean(metrics.angle_error_sym(labels[..., 8:12],
+                                                 pred[..., 8:12]))
+        return loss, acc, ang, pred
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Data sources
+# ---------------------------------------------------------------------------
+
+class SyntheticResident:
+    """A synthetic dataset resident on the device as uint8, rendered once
+    in chunks of ``chunk`` with :func:`make_batch`; batches are gathered
+    on the device. With ``cfg.data_cache`` it is kept as an ``.npz`` under
+    ``data_cache/`` and loaded from there next time."""
+
+    def __init__(self, cfg: TrainConfig, size: int, seed: int,
+                 device: torch.device, chunk: int = 256):
+        self.cfg = cfg
+        # pad to the chunk before the cache lookup, so a cached and a fresh
+        # dataset have the same size and the same train/val split
+        size = -(-size // chunk) * chunk
+        cache = self._cache_path(cfg, size, seed)
+        if cache and os.path.exists(cache):
+            with np.load(cache) as data:
+                self.images = torch.from_numpy(data["images"]).to(device)
+                self.labels = torch.from_numpy(data["labels"]).to(device)
+            size = int(self.images.shape[0])
+            MetricLogger.line(f"loaded synthetic dataset cache {cache}")
+        else:
+            gen = _generator(device, seed, _DATA_STREAM)
+            s = cfg.image_size
+            self.images = torch.empty((size, s, s), dtype=torch.uint8,
+                                      device=device)
+            self.labels = torch.empty((size, 12), dtype=torch.float32,
+                                      device=device)
+            for i in range(0, size, chunk):
+                imgs, lbls = make_batch(gen, chunk, s, cfg.renderer,
+                                        iso=cfg.iso)
+                # truncation to uint8, as the JAX package's astype
+                self.images[i:i + chunk] = (imgs[..., 0] * 255.0).to(
+                    torch.uint8)
+                self.labels[i:i + chunk] = lbls
+            if cache:
+                os.makedirs(os.path.dirname(cache), exist_ok=True)
+                np.savez(cache, images=self.images.cpu().numpy(),
+                         labels=self.labels.cpu().numpy())
+        self.size = size
+        self.n_train = int(cfg.train_split * size)
+        self.n_val = size - self.n_train
+        if self.n_val == 0:
+            raise ValueError(
+                f"train_split={cfg.train_split} leaves no validation "
+                f"samples in a {size}-image synthetic dataset")
+
+    @staticmethod
+    def _cache_path(cfg: TrainConfig, size: int, seed: int):
+        if not cfg.ckpt_dir or not cfg.data_cache:
+            return None
+        name = (f"synth_torch_{size}_{cfg.image_size}_{cfg.renderer}"
+                f"_iso{int(cfg.iso)}_s{seed}.npz")
+        return os.path.join("data_cache", name)
+
+    def _gather(self, gen: torch.Generator, lo: int, n: int):
+        idx = torch.randint(lo, lo + n, (self.cfg.batch_size,),
+                            generator=gen, device=self.images.device)
+        imgs = self.images[idx].to(torch.float32) / 255.0
+        return imgs[..., None], self.labels[idx]
+
+    def train_batch(self, gen: torch.Generator):
+        return self._gather(gen, 0, self.n_train)
+
+    def val_batch(self, gen: torch.Generator):
+        return self._gather(gen, self.n_train, self.n_val)
+
+
+# ---------------------------------------------------------------------------
+# The loop
+# ---------------------------------------------------------------------------
+
+def train(cfg: TrainConfig, synthetic_size: Optional[int] = None):
+    """Run training per ``cfg``; returns ``(state, history)``."""
+    check_slice(cfg)
+    device = resolve_device(cfg.device)
+    logger = MetricLogger(cfg.ckpt_dir or "", "train")
+    nan_guard = NanGuard(cfg.nan_policy)
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)  # the initial weights
+        model = build_model(cfg.model)
+    if cfg.init_weights:
+        # full-model warm start from a portable npz; fresh optimizer
+        load_weights_npz(cfg.init_weights, model)
+        MetricLogger.line(f"warm-started all weights from {cfg.init_weights}")
+    model.to(device)
+    state = create_train_state(model, cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    MetricLogger.line(f"model={cfg.model} params={n_params:,} "
+                      f"loss={cfg.loss} device={device}")
+
+    train_step = make_train_step(state, cfg)
+    eval_step = make_eval_step(state, cfg)
+
+    # ----- data
+    if cfg.data == "synthetic":
+        size = (synthetic_size or cfg.synthetic_size
+                or max(cfg.batch_size * cfg.steps_per_epoch // 4,
+                       cfg.batch_size * 4))
+        MetricLogger.line(f"rendering {size} synthetic depth maps on "
+                          f"{device}…")
+        dataset = SyntheticResident(cfg, size, cfg.seed, device)
+    else:
+        dataset = None
+
+    def batches(gen: torch.Generator, n: int, val: bool):
+        for _ in range(n):
+            if dataset is None:
+                yield make_batch(gen, cfg.batch_size, cfg.image_size,
+                                 cfg.renderer, iso=cfg.iso)
+            else:
+                yield dataset.val_batch(gen) if val \
+                    else dataset.train_batch(gen)
+
+    # ----- resume
+    history = {"loss": [], "val_loss": [], "val_acc": []}
+    scheduler = ReduceLROnPlateau(get_lr(state), cfg.plateau_patience,
+                                  cfg.plateau_factor)
+    reset_best = False
+    start_epoch = 0
+    ckpt_path = os.path.join(cfg.ckpt_dir, "best")
+    last_path = os.path.join(cfg.ckpt_dir, "last")
+    resume_path = last_path if cfg.resume_from == "last" else ckpt_path
+    if cfg.continue_training and checkpoint_exists(resume_path):
+        MetricLogger.line("Continuing with training…")
+        saved_cfg = load_config(resume_path, TrainConfig)
+        if saved_cfg.model != cfg.model:
+            raise ValueError(f"{resume_path} holds a {saved_cfg.model!r} "
+                             f"model, this run builds {cfg.model!r}")
+        saved_history, saved_epoch = load_checkpoint(resume_path, state,
+                                                     scheduler)
+        # the checkpoint holds the last completed epoch; resume at the next
+        start_epoch = saved_epoch + 1
+        history = {"loss": [], "val_loss": [], "val_acc": [],
+                   **{k: list(v) for k, v in saved_history.items()}}
+        if cfg.reset_lr > 0:
+            # a loss-switch fine-tune: a fresh LR and plateau count, and the
+            # old best validation loss no longer applies
+            set_lr(state, cfg.reset_lr)
+            scheduler = ReduceLROnPlateau(cfg.reset_lr,
+                                          cfg.plateau_patience,
+                                          cfg.plateau_factor)
+            reset_best = True
+            MetricLogger.line(f"reset LR to {cfg.reset_lr:g} on resume")
+
+    finite_vals = [v for v in history.get("val_loss", []) if np.isfinite(v)]
+    best_val = None if (reset_best or not finite_vals) else min(finite_vals)
+    meter = Throughput()
+
+    epoch = last_saved_epoch = start_epoch - 1
+    for epoch in range(start_epoch, cfg.max_epochs):
+        # Steps run asynchronously; the loss reaches the host every
+        # log_interval steps, and once per epoch for all steps.
+        losses_dev = []
+        meter.reset()
+        train_gen = _generator(device, cfg.seed, _TRAIN_STREAM, epoch)
+        for step_idx, (imgs, labels) in enumerate(
+                batches(train_gen, cfg.steps_per_epoch, val=False)):
+            loss = train_step(imgs, labels)
+            losses_dev.append(loss)
+            meter.update(int(imgs.shape[0]))
+            if step_idx % cfg.log_interval == 0:
+                loss_val = float(loss)
+                nan_guard.check(loss_val)
+                MetricLogger.progress(
+                    f"Train Epoch: {epoch} Step: {step_idx} "
+                    f"Loss: {loss_val:.6f} ({meter.rate:.0f} imgs/s)")
+        if losses_dev:
+            epoch_losses = torch.stack(losses_dev).cpu().numpy()  # a fence
+            finite = epoch_losses[np.isfinite(epoch_losses)]
+            train_loss = float(finite.mean()) if finite.size else float("nan")
+            if finite.size < epoch_losses.size:
+                MetricLogger.line(
+                    f"[nan-guard] {epoch_losses.size - finite.size} "
+                    f"non-finite step losses this epoch")
+        else:
+            train_loss = float("nan")
+        epoch_rate = meter.rate
+        history["loss"].append(train_loss)
+
+        val_losses, val_accs, val_angs = [], [], []
+        val_first = None
+        val_gen = _generator(device, cfg.seed, _VAL_STREAM)
+        for imgs, labels in batches(val_gen, cfg.val_steps, val=True):
+            l, a, ang, pred = eval_step(imgs, labels)
+            if val_first is None:
+                val_first = (imgs, pred)
+            val_losses.append(l)
+            val_accs.append(a)
+            val_angs.append(ang)
+        if val_losses:
+            val_loss = float(torch.stack(val_losses).mean())
+            val_acc = float(torch.stack(val_accs).mean())
+            val_ang = float(torch.stack(val_angs).mean())
+        else:
+            val_loss = val_acc = val_ang = float("nan")
+        history["val_loss"].append(val_loss)
+        history["val_acc"].append(val_acc)
+        ang_hist = history.setdefault("val_angle_sym", [])
+        while len(ang_hist) < len(history["val_loss"]) - 1:
+            ang_hist.append(float("nan"))  # keep every list epoch-aligned
+        ang_hist.append(val_ang)
+
+        if (epoch == 0 and cfg.ckpt_dir and cfg.compare_images > 0
+                and val_first is not None):
+            _save_compare_images(cfg, val_first[0], val_first[1],
+                                 os.path.join(cfg.ckpt_dir, "compare"))
+
+        if cfg.lr_schedule == "step2019":
+            new_lr = step_schedule_2019(epoch)
+        else:
+            new_lr = scheduler.step(val_loss)
+        if abs(new_lr - get_lr(state)) > 1e-6 * max(new_lr, 1e-12):
+            MetricLogger.line(f"Reducing learning rate to {new_lr:g}")
+            set_lr(state, new_lr)
+
+        # a non-finite val_loss neither becomes the best nor poisons it
+        if cfg.ckpt_dir and np.isfinite(val_loss) and (
+                best_val is None or val_loss < best_val):
+            best_val = val_loss
+            save_checkpoint(ckpt_path, state, history, epoch, cfg, scheduler)
+            saved = " [saved]"
+        else:
+            saved = ""
+        last_every = max(int(cfg.save_last_interval), 1)
+        if cfg.ckpt_dir and cfg.save_last and (
+                epoch % last_every == last_every - 1):
+            save_checkpoint(last_path, state, history, epoch, cfg, scheduler)
+            last_saved_epoch = epoch
+        MetricLogger.line(
+            f"Epoch {epoch}: loss {train_loss:.6f}  val_loss {val_loss:.6f} "
+            f"val_acc {val_acc:.6f}  {epoch_rate:.0f} imgs/s{saved}")
+        logger.log(epoch=epoch, loss=train_loss, val_loss=val_loss,
+                   val_acc=val_acc, val_angle_sym=val_ang,
+                   lr=get_lr(state), imgs_per_sec=epoch_rate)
+
+    # 'last' reflects the final state on any exit from the loop
+    if cfg.ckpt_dir and cfg.save_last and epoch > last_saved_epoch:
+        save_checkpoint(last_path, state, history, epoch, cfg, scheduler)
+    return state, history
+
+
+@torch.no_grad()
+def _save_compare_images(cfg: TrainConfig, imgs, pred, out_dir: str):
+    """True/pred depth BMP pairs for the first validation samples; the
+    prediction is rendered by the hard ray-caster at the full sweep
+    (image_size slabs, 24 bisections), K3 on the card."""
+    os.makedirs(out_dir, exist_ok=True)
+    n = min(cfg.compare_images, int(imgs.shape[0]))
+    pred_imgs = render_hard_auto(pred[:n], cfg.image_size,
+                                 n_sweep=cfg.image_size, n_bisect=24,
+                                 quantize=True)
+    true_u8 = (imgs[:n, ..., 0] * 255).to(torch.uint8).cpu().numpy()
+    pred_u8 = (pred_imgs * 255).to(torch.uint8).cpu().numpy()
+    for i in range(n):
+        write_bmp(os.path.join(out_dir, f"{i}_true.bmp"), true_u8[i])
+        write_bmp(os.path.join(out_dir, f"{i}_pred.bmp"), pred_u8[i])

@@ -1,6 +1,6 @@
 """Run configurations and the device switch of the port's entry points.
 
-Counterpart of ``sqtpu/utils/config.py:137-176`` and ``parse_cli``, and of
+Counterpart of ``sqtpu/utils/config.py:17-176`` and ``parse_cli``, and of
 ``ServeConfig`` in ``sqtpu/serve.py``. ``device`` replaces the JAX
 configs' ``platform``: entry points run on ``cuda`` unless the caller asks
 for ``cpu``, and a missing card is an error, never a silent CPU run. The
@@ -17,6 +17,88 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+
+@dataclass
+class TrainConfig:
+    """The JAX package's ``TrainConfig``, field for field and flag for
+    flag, plus ``device``. ``platform`` and ``donate`` mean nothing in
+    PyTorch: they are accepted and ignored. ``use_pallas`` keeps its name
+    for CLI parity and means "use the hand-written kernels" (K1/K2 for the
+    implicit loss on the card); off, the plain loss runs on any device."""
+
+    # model / loss
+    model: str = "resnet_sq"
+    loss: str = "implicit"            # only "implicit" is ported
+    aux_weight: float = 0.05
+    gauge_weight: float = 1.0
+    geo_weight: float = 1.0
+    shape_weight: float = 1.0
+    elong_weight: float = 0.0
+    render_size: int = 64
+    tau: float = 1.5
+    sigmoid_sharpness: float = 260.0
+    explicit_sharp: float = 5.0
+    acc_render_size: int = 64         # IoU validation metric grid
+
+    # optimization
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.0
+    grad_clip: float = 0.0            # global-norm gradient clip, 0 = off
+    batch_size: int = 32
+    max_epochs: int = 100
+    steps_per_epoch: int = 100        # synthetic data is infinite
+    val_steps: int = 10
+    plateau_patience: int = 25
+    plateau_factor: float = 0.1
+    seed: int = 0
+
+    # data
+    data: str = "synthetic"           # synthetic | online
+    labels_csv: str = ""              # CSV for directory datasets
+    image_size: int = 256
+    renderer: str = "hard"            # on-device GT renderer: hard | soft
+    train_split: float = 0.9
+    shuffle: bool = True
+    iso: bool = False
+    synthetic_size: int = 0           # resident dataset size (0 = auto)
+    data_cache: bool = False          # persist synthetic data under data_cache/
+    lr_schedule: str = "plateau"      # plateau | step2019
+
+    # training-time sensor-noise augmentation (Slice C2)
+    augment_gaussian: float = 0.0
+    augment_dropout: float = 0.0
+    augment_salt: float = 0.0
+    augment_randomize: bool = False
+
+    # precision / parallelism
+    dtype: str = "float32"
+    remat: bool = False
+    n_grid: int = 1
+    donate: bool = True               # accepted, ignored (no buffer donation)
+    platform: str = ""                # accepted, ignored (see device)
+
+    # warm starts
+    pretrained: str = ""
+    init_weights: str = ""            # full-model warm start from a .npz
+    init_base: str = ""
+    freeze_base: bool = False
+
+    # checkpoint / logging
+    ckpt_dir: str = "checkpoints/run0"
+    continue_training: bool = False
+    resume_from: str = "best"         # best | last
+    reset_lr: float = 0.0             # >0: override LR after resume
+    save_last: bool = True
+    save_last_interval: int = 5
+    log_interval: int = 10
+    compare_images: int = 4           # epoch-0 true/pred BMP pairs
+    nan_policy: str = "warn"          # warn | skip
+    profile_dir: str = ""
+
+    # kernels
+    use_pallas: bool = True           # the hand-written kernels on the card
+    device: str = "cuda"              # cuda | cpu
 
 
 @dataclass
@@ -67,9 +149,9 @@ def check_slice(cfg) -> None:
     if cfg.model not in MODEL_REGISTRY:
         build_model(cfg.model)  # raises, naming the slice
     later = []
-    if cfg.refine != "none":
+    if getattr(cfg, "refine", "none") != "none":
         later.append(f"refine={cfg.refine!r}: Slice D (fit.refine_params)")
-    if cfg.input_filter != "none":
+    if getattr(cfg, "input_filter", "none") != "none":
         later.append(f"input_filter={cfg.input_filter!r}: "
                      "Slice C2 (ops/image.py)")
     for name in ("noise_gaussian", "noise_dropout", "noise_salt"):
@@ -79,9 +161,51 @@ def check_slice(cfg) -> None:
         later.append("iso: Slice F (the 2019 isometric models)")
     if getattr(cfg, "save_pairs", 0) > 0:
         later.append("save_pairs > 0: Slice C1 (eval image pairs)")
+    if isinstance(cfg, TrainConfig):
+        later += _train_options_later(cfg)
     if later:
         raise NotImplementedError(
             "not ported yet (see ROADMAP.md): " + "; ".join(later))
+
+
+# The JAX package's losses, and the ROADMAP.md slice that ports each.
+_LOSS_SLICE = {
+    **dict.fromkeys(
+        ("explicit", "explicit_sym", "explicit_gauge", "param_mse",
+         "supervised", "supervised_sym", "supervised_geo",
+         "supervised_gauge", "implicit_sym", "implicit_gauge", "quaternion",
+         "quaternion_sym"),
+        "Slice B (training/loop.py supervised and explicit branches)"),
+    "leastsquares": "Slice D (ops/losses.py least_squares_loss)",
+    "keras_chamfer": "Slice F (the Keras losses)",
+}
+
+
+def _train_options_later(cfg: "TrainConfig") -> list:
+    later = []
+    if cfg.loss != "implicit":
+        later.append(f"loss={cfg.loss!r}: "
+                     + _LOSS_SLICE.get(cfg.loss, "no such loss"))
+    for name in ("augment_gaussian", "augment_dropout", "augment_salt",
+                 "augment_randomize"):
+        if getattr(cfg, name):
+            later.append(f"{name}: Slice C2 (data/augment.py)")
+    if cfg.pretrained:
+        later.append("pretrained: Slice F (torchvision encoder weights)")
+    if cfg.init_base or cfg.freeze_base:
+        later.append("init_base/freeze_base: Slice D (models/refiner.py)")
+    if cfg.n_grid > 1:
+        later.append("n_grid > 1: Slice E (grid-sharded loss, kernel K6)")
+    if cfg.dtype != "float32":
+        later.append(f"dtype={cfg.dtype!r}: Slice F")
+    if cfg.remat:
+        later.append("remat: Slice F")
+    if cfg.profile_dir:
+        later.append("profile_dir: Slice F (utils/profiling.py)")
+    if cfg.data not in ("synthetic", "online"):
+        later.append(f"data={cfg.data!r} (a BMP directory): Slice C2 "
+                     "(data/datasets.py)")
+    return later
 
 
 def resolve_device(name: str) -> torch.device:

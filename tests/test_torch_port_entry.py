@@ -27,6 +27,9 @@ from sqtpu_torch.utils.config import (
     EvalConfig, ServeConfig, parse_cli, resolve_device,
 )
 
+from test_torch_port_ops import _few_torch_threads  # noqa: F401
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(ROOT, "artifacts", "resnet_sq_c4_fp16.npz")
 TRUTHS = os.path.join(ROOT, "runs", "eval_c4c3", "accs.npz")
@@ -172,6 +175,8 @@ def test_port_imports_neither_jax_nor_sqtpu():
         " or m == 'sqtpu' or m.startswith('sqtpu.')]\n"
         "assert not bad, bad\n"
         "assert 'sqtpu_torch.serve' in sys.modules\n"
+        "assert 'sqtpu_torch.train' in sys.modules\n"
+        "assert 'sqtpu_torch.training.loop' in sys.modules\n"
         "print('clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -20,7 +20,9 @@ from sqtpu.ops import quaternion as jquat
 from sqtpu_torch.ops import render as trender
 from sqtpu_torch.ops.kernels import _build, hardrender, render_hard_auto
 
-from test_torch_port_ops import levels_off, random_params
+from test_torch_port_ops import (  # noqa: F401
+    _few_torch_threads, levels_off, random_params,
+)
 
 
 @pytest.fixture

@@ -27,6 +27,9 @@ from sqtpu_torch.utils.checkpoint import (
     load_weights_npz, state_dict_from_flax,
 )
 
+from test_torch_port_ops import _few_torch_threads  # noqa: F401
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(ROOT, "artifacts", "resnet_sq_c4_fp16.npz")
 TRUTHS = os.path.join(ROOT, "runs", "eval_c4c3", "accs.npz")

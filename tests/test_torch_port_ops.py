@@ -28,6 +28,19 @@ from sqtpu_torch.ops import metrics as tmetrics
 from sqtpu_torch.ops import quaternion as tquat
 from sqtpu_torch.ops import render as trender
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """The suite runs in several worker processes on one host: a torch
+    pool of one thread per core in each of them oversubscribes the cores
+    and every worker slows down many times over. Two threads in each port
+    test module (the others import this fixture)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 RTOL = 1e-10
 
 
