@@ -17,13 +17,21 @@ user calls:
 * self-supervised training (phases 7-10): K1/K2 against the emulation of
   their algorithm and the plain loss at the training shape, one train
   step on the card against the CPU's, the ssl artifact's validation loss
-  against the JAX package's, the per-stage time of a train step, and
-  ``python -m sqtpu_torch.train`` with the ssl1 recipe (resumed once) and
-  with the default config, with the launch counts of K3, K1 and K2.
+  against the JAX package's, the per-stage time of a train step (with
+  cuDNN's deterministic algorithms off and on), and
+  ``python -m sqtpu_torch.train`` with the ssl1 recipe (twice, and resumed
+  once) and with the default config, with the launch counts of K3, K1 and
+  K2;
+* supervised training with the c4c recipe (phases 11-14): K4/K5 against
+  the emulation of their algorithm and the plain loss at the recipe's
+  shape, one ``explicit_sym`` step with ``remat`` on the card against the
+  CPU's, the c4 artifact's validation loss against the JAX package's, and
+  ``python -m sqtpu_torch.train`` with the c4c recipe (twice), with the
+  launch counts of K3, K4 and K5 and the step's per-stage time.
 
 One flushed progress line per phase, with the elapsed seconds; no failure
-is caught. The last lines are one JSON object with the train step's
-split, the card (``nvidia-smi`` name and power limit), one JSON object
+is caught. The last lines are one JSON object with the train steps'
+splits, the trainers' rates and run-to-run gaps, the card (``nvidia-smi`` name and power limit), one JSON object
 with each kernel's numbers, and ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when torch sees no CUDA device or
@@ -90,9 +98,35 @@ IMG_GRAD_RTOL = 1e-4
 # T_j 2, V, W 2, gF 5) and the gradient chain's 108.
 OPS_K1 = 59
 OPS_K2 = 174
-KERNEL_SOURCES = ("hardrender", "implicit")
+KERNEL_SOURCES = ("hardrender", "implicit", "explicit")
 KERNEL_ENTRIES = ("hardrender_kernel", "implicit_fwd_kernel",
-                  "implicit_bwd_kernel", "sum_partials")
+                  "implicit_bwd_kernel", "explicit_fwd_kernel",
+                  "explicit_fused_kernel", "sum_partials")
+
+# The explicit loss at the c4c recipe's shape: batch 256, 128³, sharp 20.
+# Tolerances are the JAX package's (tests/test_pallas_explicit.py:46-49,
+# 86-92): value relative 1e-5 on the full sweep, 1e-3 windowed against the
+# full-sweep plain loss (the skipped planes' tails); gradient rtol 5e-3 with
+# atol 1e-6 full, 5e-4 windowed against the plain loss. Against the
+# emulation, which sweeps the same window, the full-sweep bounds hold.
+EXPLICIT_N, EXPLICIT_SHARP = 128, 20.0
+EXPLICIT_WINDOW_RTOL, EXPLICIT_WINDOW_ATOL = 1e-3, 5e-4
+# The plain loss materializes (B, 129³) float32 intermediates, dozens of
+# them under autograd: it runs in chunks of this many samples.
+PLAIN_CHUNK = 16
+# fp32 operations per in-window lattice point, each logf/expf counted as
+# one, read off sqtpu_torch/csrc/explicit.cu and sq_field.cuh: two field
+# chains (2 × 49) and two sigmoids (2 × 6), d, and d² into the sum (2):
+# K5 113; K4 adds gF (5) and the gradient chain (108): 226.
+OPS_K5 = 113
+OPS_K4 = 226
+# One explicit_sym train step, card (K4, windowed) against CPU (plain loss,
+# full sweep), c4 weights with remat, at batch 8 and 64³ so the CPU side
+# stays small: the loss relative 1e-3, the window's bound (the card's K4
+# skips the planes outside each sample's window, the CPU sweeps them all);
+# gradient norms and BatchNorm statistics as phase 8.
+EX_STEP_B, EX_STEP_N = 8, 64
+EX_STEP_LOSS_RTOL = EXPLICIT_WINDOW_RTOL
 
 # One train step, card (K1/K2, windowed) against CPU (plain loss, full
 # sweep), same weights and batch: loss relative 1e-4; the gradient norm of
@@ -114,9 +148,32 @@ STEP_STATS_RTOL, STEP_STATS_ATOL = 1e-4, 1e-6
 PINNED_N = 16
 PINNED_VAL_LOSS = 0.008272182196378708
 PINNED_RTOL = 1e-3
+# The c4c recipe's loss (runs/queue_r12.sh:44-53): explicit_sym, explicit
+# loss at 128³ with sharpness 20, gauge weight 2, elongation weight 1.5.
+C4C_LOSS = dict(loss="explicit_sym", render_size=128, explicit_sharp=20.0,
+                gauge_weight=2.0, elong_weight=1.5)
+# The JAX package's explicit_sym validation loss (C4C_LOSS, full sweep) of
+# the c4 artifact's eval-mode predictions on the first 16 recorded truths
+# rendered by its hard renderer at (48, 12), computed on the CPU; pinned by
+# tests/test_torch_port_train_supervised.py::
+# test_pinned_explicit_validation_number. The port's CPU pipeline gives it
+# within 2.8e-4: the two hard renderers differ by one gray level on 8 of
+# the 16·256² pixels. The card's K5 sweeps each sample's window, whose
+# skipped planes add nothing to this loss in float32 at sharpness 20.
+PINNED_EXPLICIT_VAL_LOSS = 0.3099849820137024
+PINNED_EXPLICIT_RTOL = 1e-3
 # The ssl1 recipe (runs/queue_r13.sh:149-157), cut to 10 steps and 2
 # validation steps an epoch.
 TRAINER_STEPS, TRAINER_VAL_STEPS = 10, 2
+# Two runs of the trainer with the same seed do not repeat to the bit on
+# the card: cuDNN's default backward algorithms sum in an order that varies
+# from run to run, and Adam steps from random weights amplify it (measured
+# on the ssl1 recipe: up to 3.2e-3 relative on a train loss across calls,
+# 1.06e-2 on the epoch-0 validation loss within one call). cuDNN's
+# deterministic algorithms repeat to the bit but cost 13% of the ssl1 step
+# (both measured on one H100 80GB HBM3, 700 W; PERF.md), so they stay off
+# and this bound, about five times the largest gap measured, is held.
+RUN_TO_RUN_RTOL = 5e-2
 SSL1_RECIPE = ("--model", "resnet_sq", "--loss", "implicit",
                "--render-size", "64", "--sigmoid-sharpness", "260.0",
                "--tau", "1.5", "--data", "online", "--image-size", "256",
@@ -126,6 +183,24 @@ SSL1_RECIPE = ("--model", "resnet_sq", "--loss", "implicit",
                "--compare-images", "0", "--log-interval", "5",
                "--steps-per-epoch", str(TRAINER_STEPS),
                "--val-steps", str(TRAINER_VAL_STEPS))
+
+# The c4c recipe (runs/queue_r12.sh:44-53), warm-started from the c4
+# artifact (the recipe starts from resnet_sq_128_fp16.npz, which is not in
+# the chip's copy) and cut like ssl1.
+C4C_RECIPE = ("--model", "resnet_sq", "--loss", "explicit_sym",
+              "--render-size", "128", "--explicit-sharp", "20.0",
+              "--gauge-weight", "2.0", "--elong-weight", "1.5",
+              "--data", "online", "--image-size", "256",
+              "--batch-size", "256", "--remat", "true",
+              "--learning-rate", "5e-6", "--init-weights", WEIGHTS,
+              "--plateau-patience", "20", "--acc-render-size", "64",
+              "--dtype", "float32", "--nan-policy", "skip",
+              "--compare-images", "0", "--log-interval", "5",
+              "--steps-per-epoch", str(TRAINER_STEPS),
+              "--val-steps", str(TRAINER_VAL_STEPS))
+C4C_B = 256
+C4C_SPLIT = ("render (K3)", "forward", "loss (K4 + anchor)",
+             "backward (incl. recompute)", "optimizer")
 
 T0 = time.perf_counter()
 
@@ -539,63 +614,80 @@ def phase_implicit(dev) -> tuple[dict, dict]:
     return rows[0], rows[1]
 
 
-def phase_train_step(truths, dev) -> None:
-    """One train step on the card (K1/K2) against the same step on the CPU
-    (the plain loss), from the ssl artifact's weights on the same batch."""
+def step_card_vs_cpu(what: str, truths, dev, cfg, weights: str, counts,
+                     want_card, loss_rtol: float) -> None:
+    """One train step of ``cfg`` on the card against the same step on the
+    CPU (the plain losses), from ``weights`` on the same batch of K3
+    images; ``counts()`` reads the launch counters of the step's loss
+    kernels, reset before each side's step."""
     import torch
 
     from sqtpu_torch.models import build_model
+    from sqtpu_torch.ops.kernels import explicit as KE
     from sqtpu_torch.ops.kernels import implicit as K
     from sqtpu_torch.ops.kernels import render_hard_auto
     from sqtpu_torch.training.loop import make_train_step
     from sqtpu_torch.training.state import create_train_state
     from sqtpu_torch.utils.checkpoint import load_weights_npz
-    from sqtpu_torch.utils.config import TrainConfig
 
-    cfg = TrainConfig(batch_size=STEP_B)
-    labels = torch.as_tensor(truths[:STEP_B], device=dev)
+    b = cfg.batch_size
+    labels = torch.as_tensor(truths[:b], device=dev)
     imgs = render_hard_auto(labels, IMAGE, n_sweep=TRAIN_SWEEP,
                             n_bisect=TRAIN_BISECT, quantize=True)[..., None]
     runs = {}
     for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        model = load_weights_npz(SSL_WEIGHTS, build_model("resnet_sq"))
+        model = load_weights_npz(weights, build_model("resnet_sq"))
         state = create_train_state(model.to(device), cfg)
         K.reset_launches()
+        KE.reset_launches()
         loss = make_train_step(state, cfg)(imgs.to(device),
                                            labels.to(device))
         runs[where] = {
             "loss": float(loss),
-            "launches": (K.fwd_launches, K.bwd_launches),
+            "launches": counts(),
             "grad_norms": {n: float(p.grad.norm())
                            for n, p in model.named_parameters()},
             "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()
                         if not n.endswith("num_batches_tracked")}}
     card, cpu = runs["card"], runs["cpu"]
-    if card["launches"] != (1, 1) or cpu["launches"] != (0, 0):
-        raise RuntimeError(f"train step launches K1/K2 {card['launches']} "
-                           f"on the card, {cpu['launches']} on the CPU")
+    if card["launches"] != want_card or any(cpu["launches"]):
+        raise RuntimeError(f"{what}: launches {card['launches']} on the "
+                           f"card, {cpu['launches']} on the CPU")
     rel = rel_err(card["loss"], cpu["loss"])
-    if not rel <= STEP_LOSS_RTOL:
-        raise RuntimeError(f"train step loss {card['loss']!r} on the card, "
+    if not rel <= loss_rtol:
+        raise RuntimeError(f"{what}: loss {card['loss']!r} on the card, "
                            f"{cpu['loss']!r} on the CPU (rel {rel:.2e})")
     worst_norm = 0.0
     for name, want in cpu["grad_norms"].items():
         got = card["grad_norms"][name]
         err = abs(got - want)
         if not err <= STEP_GRAD_ATOL + STEP_GRAD_RTOL * want:
-            raise RuntimeError(f"gradient norm of {name}: {got!r} on the "
-                               f"card, {want!r} on the CPU")
+            raise RuntimeError(f"{what}: gradient norm of {name}: {got!r} "
+                               f"on the card, {want!r} on the CPU")
         worst_norm = max(worst_norm, err / max(want, STEP_GRAD_ATOL))
     worst_stat = 0.0
     for name, want in cpu["buffers"].items():
         worst_stat = max(worst_stat, check_close(
-            f"BatchNorm {name} after the step", card["buffers"][name], want,
-            STEP_STATS_RTOL, STEP_STATS_ATOL))
-    progress(f"train step B={STEP_B}: loss {card['loss']:.7f} on the card, "
-             f"{cpu['loss']:.7f} on the CPU (rel {rel:.2e}); worst relative "
-             f"gradient-norm gap {worst_norm:.2e} over "
-             f"{len(cpu['grad_norms'])} parameters; worst |BN stat gap| "
-             f"{worst_stat:.2e}")
+            f"{what}: BatchNorm {name} after the step",
+            card["buffers"][name], want, STEP_STATS_RTOL, STEP_STATS_ATOL))
+    progress(f"{what} B={b}: loss {card['loss']:.7f} on the card, "
+             f"{cpu['loss']:.7f} on the CPU (rel {rel:.2e}, bound "
+             f"{loss_rtol}); worst relative gradient-norm gap "
+             f"{worst_norm:.2e} over {len(cpu['grad_norms'])} parameters; "
+             f"worst |BN stat gap| {worst_stat:.2e}; launches "
+             f"{card['launches']}")
+
+
+def phase_train_step(truths, dev) -> None:
+    """One ssl train step on the card (K1/K2) against the CPU's, from the
+    ssl artifact's weights."""
+    from sqtpu_torch.ops.kernels import implicit as K
+    from sqtpu_torch.utils.config import TrainConfig
+
+    step_card_vs_cpu("train step (implicit)", truths, dev,
+                     TrainConfig(batch_size=STEP_B), SSL_WEIGHTS,
+                     lambda: (K.fwd_launches, K.bwd_launches), (1, 1),
+                     STEP_LOSS_RTOL)
 
 
 def phase_validation(truths, dev) -> None:
@@ -636,36 +728,228 @@ def phase_validation(truths, dev) -> None:
                            f"{rel:.2e} (bound {PINNED_RTOL})")
 
 
-def phase_step_split(dev) -> dict:
-    """Device time of each stage of the ssl1 recipe's train step (batch
-    512, online data): the same calls as ``make_train_step``, with CUDA
-    events between them; median of 5 steps after one warm-up."""
+def plain_explicit(true, pred, n: int, sharp: float, grad: bool):
+    """The plain explicit loss (batch mean) and, with ``grad``, its pred
+    gradient, in chunks of PLAIN_CHUNK samples with a backward per chunk."""
+    import torch
+
+    from sqtpu_torch.ops import losses
+
+    b = pred.shape[0]
+    p = pred.detach().clone().requires_grad_(grad)
+    total = torch.zeros((), device=pred.device)
+    with torch.set_grad_enabled(grad):
+        for i in range(0, b, PLAIN_CHUNK):
+            part = losses.explicit_loss(true[i:i + PLAIN_CHUNK],
+                                        p[i:i + PLAIN_CHUNK], n, False,
+                                        sharp).sum() / b
+            if grad:
+                part.backward()
+            total = total + part.detach()
+    return total, p.grad
+
+
+def phase_explicit(dev) -> tuple[dict, dict]:
+    """K4 and K5 against the emulation of their algorithm and against the
+    plain loss (autograd), at the c4c shape, windowed and full sweep;
+    twice, bit for bit; then times and bounds."""
+    import torch
+
+    from sqtpu_torch.data.synthetic import sample_params
+    from sqtpu_torch.ops.kernels import explicit as KE
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    truths = sample_params(C4C_B, gen)
+    pred = truths + 0.02 * torch.randn((C4C_B, 12), generator=gen,
+                                       device=dev)
+    pred = torch.cat([pred[:, :8], torch.nn.functional.normalize(
+        pred[:, 8:], dim=-1)], dim=-1)
+    n, sharp = EXPLICIT_N, EXPLICIT_SHARP
+
+    def value_and_grad(fn, z_window):
+        p = pred.clone().requires_grad_(True)
+        loss = fn(truths, p, n, z_window=z_window, sharp=sharp)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.detach(), p.grad
+
+    def value_only(fn, z_window):
+        with torch.no_grad():
+            return fn(truths, pred, n, z_window=z_window, sharp=sharp)
+
+    plain = plain_explicit(truths, pred, n, sharp, grad=True)
+    worst = {"value": 0.0, "grad": 0.0, "k5_vs_k4": 0.0}
+    for z_window in (True, False):
+        KE.reset_launches()
+        got = value_and_grad(KE.explicit_loss_cuda, z_window)
+        k5 = value_only(KE.explicit_loss_cuda, z_window)
+        if (KE.fused_launches, KE.fwd_launches) != (1, 1):
+            raise RuntimeError(f"K4/K5 launches {KE.fused_launches}, "
+                               f"{KE.fwd_launches}: expected one each")
+        again = value_and_grad(KE.explicit_loss_cuda, z_window)
+        if not (all(torch.equal(a, b) for a, b in zip(got, again))
+                and torch.equal(k5, value_only(KE.explicit_loss_cuda,
+                                               z_window))):
+            raise RuntimeError("K4/K5 are not bit-identical run to run "
+                               f"(z_window={z_window})")
+        rel45 = rel_err(float(k5), float(got[0]))
+        if not rel45 <= VALUE_RTOL:
+            raise RuntimeError(f"K5 {float(k5)!r} against K4 "
+                               f"{float(got[0])!r} (rel {rel45:.2e})")
+        worst["k5_vs_k4"] = max(worst["k5_vs_k4"], rel45)
+        emu = value_and_grad(KE.explicit_loss_emulated, z_window)
+        refs = [("emulation", emu, VALUE_RTOL, GRAD_ATOL)]
+        refs.append(("plain loss", plain) + (
+            (EXPLICIT_WINDOW_RTOL, EXPLICIT_WINDOW_ATOL) if z_window
+            else (VALUE_RTOL, GRAD_ATOL)))
+        for ref_name, ref, vtol, gatol in refs:
+            what = f"K4 vs {ref_name}, z_window={z_window}"
+            for kernel, value in (("K4", got[0]), ("K5", k5)):
+                rel = rel_err(float(value), float(ref[0]))
+                if not rel <= vtol:
+                    raise RuntimeError(f"{what}: {kernel} loss "
+                                       f"{float(value)!r} vs "
+                                       f"{float(ref[0])!r}, rel {rel:.2e}")
+                worst["value"] = max(worst["value"], rel)
+            worst["grad"] = max(worst["grad"], check_close(
+                what + ", pred gradient", got[1], ref[1], GRAD_RTOL, gatol))
+        progress(f"K4/K5 z_window={z_window} B={C4C_B} N={n} sharp {sharp}: "
+                 f"loss {float(got[0]):.7f} (plain, full sweep "
+                 f"{float(plain[0]):.7f}), bit-identical twice, within "
+                 "tolerance of the emulation and the plain loss")
+
+    # times at the main path's setting (windowed)
+    par_t, par_p = KE.pack_params(truths, pred, n, True,
+                                  KE.default_margin(sharp))
+    fused_ms = cuda_ms(lambda: KE.cuda_fused(par_t, par_p, n, sharp))
+    fwd_ms = cuda_ms(lambda: KE.cuda_fwd(par_t, par_p, n, sharp))
+    emu_ms = cuda_ms(lambda: KE.emulate_fused(par_t, par_p, n, sharp))
+    plain_bwd_ms = cuda_ms(lambda: plain_explicit(truths, pred, n, sharp,
+                                                  True))
+    plain_fwd_ms = cuda_ms(lambda: plain_explicit(truths, pred, n, sharp,
+                                                  False))
+    points = KE.window_points(par_p, n)
+    par_bytes = 2 * C4C_B * KE.PAR_STRIDE * 4
+    rows = []
+    for name, ops_per, n_bytes, ms, plain_ms in (
+            ("K4", OPS_K4, par_bytes + C4C_B * 4 * (1 + KE.PAR_STRIDE),
+             fused_ms, plain_bwd_ms),
+            ("K5", OPS_K5, par_bytes + C4C_B * 4, fwd_ms, plain_fwd_ms)):
+        ops_ms = points * ops_per / PEAK_FP32_OPS * 1e3
+        bytes_ms = n_bytes / PEAK_BYTES * 1e3
+        rows.append({"ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(ops_ms, bytes_ms),
+                     "bound_by": "operations" if ops_ms >= bytes_ms
+                     else "bytes", "library_ms": None,
+                     "max_abs_err": worst["grad"],
+                     "max_rel_err_value": worst["value"],
+                     "in_window_points": points,
+                     "emulation_fused_ms": emu_ms})
+        progress(f"{name} B={C4C_B} N={n}: {ms:.4f} ms, bound "
+                 f"{max(ops_ms, bytes_ms):.4f} ms ({points} in-window "
+                 f"points, {points / (C4C_B * (n + 1) ** 3):.3f} of the "
+                 f"lattice, {ops_per} ops each), plain {plain_ms:.3f} ms")
+    rows[1]["max_rel_err_k5_vs_k4"] = worst["k5_vs_k4"]
+    progress(f"emulation of K4 {emu_ms:.3f} ms; worst rel value "
+             f"{worst['value']:.2e}, worst |grad err| {worst['grad']:.2e}, "
+             f"K5 vs K4 {worst['k5_vs_k4']:.2e}")
+    return rows[0], rows[1]
+
+
+def phase_explicit_step(truths, dev) -> None:
+    """One explicit_sym train step with remat on the card (K4) against the
+    CPU's, from the c4 artifact's weights."""
+    from sqtpu_torch.ops.kernels import explicit as KE
+    from sqtpu_torch.utils.config import TrainConfig
+
+    cfg = TrainConfig(batch_size=EX_STEP_B, remat=True, learning_rate=5e-6,
+                      nan_policy="skip",
+                      **{**C4C_LOSS, "render_size": EX_STEP_N})
+    step_card_vs_cpu("train step (explicit_sym, remat)", truths, dev, cfg,
+                     WEIGHTS, lambda: (KE.fused_launches, KE.fwd_launches),
+                     (1, 0), EX_STEP_LOSS_RTOL)
+
+
+def phase_explicit_validation(truths, dev) -> None:
+    """The c4 artifact's explicit_sym validation loss through the
+    trainer's validation step on the first recorded truths: K3 renders,
+    the model predicts in eval mode, K5 scores, IoU at 64³; against the
+    number the JAX package gives on the CPU (pinned by a test)."""
+    import torch
+
+    from sqtpu_torch.evaluate import load_eval_state
+    from sqtpu_torch.ops.kernels import explicit as KE
+    from sqtpu_torch.ops.kernels import explicit_loss_auto, render_hard_auto
+    from sqtpu_torch.ops.kernels import implicit as K
+    from sqtpu_torch.training.loop import make_eval_step
+    from sqtpu_torch.training.state import create_train_state
+    from sqtpu_torch.utils.config import EvalConfig, TrainConfig
+
+    cfg = TrainConfig(batch_size=PINNED_N, **C4C_LOSS)
+    state = create_train_state(load_eval_state(EvalConfig(ckpt_dir=WEIGHTS),
+                                               dev), cfg)
+    p = torch.as_tensor(truths[:PINNED_N], device=dev)
+    imgs = render_hard_auto(p, IMAGE, n_sweep=TRAIN_SWEEP,
+                            n_bisect=TRAIN_BISECT, quantize=True)[..., None]
+    K.reset_launches()
+    KE.reset_launches()
+    loss, acc, ang, pred = make_eval_step(state, cfg)(imgs, p)
+    launches = (KE.fused_launches, KE.fwd_launches, K.fwd_launches,
+                K.bwd_launches)
+    if launches != (0, 1, 0, 0):
+        raise RuntimeError(f"validation launched K4/K5/K1/K2 {launches}, "
+                           "expected K5 once")
+    loss = float(loss)
+    rel = rel_err(loss, PINNED_EXPLICIT_VAL_LOSS)
+    with torch.no_grad():
+        win = float(explicit_loss_auto(p, pred, EXPLICIT_N,
+                                       sharp=EXPLICIT_SHARP))
+        full = float(explicit_loss_auto(p, pred, EXPLICIT_N, z_window=False,
+                                        sharp=EXPLICIT_SHARP))
+    progress(f"validation: explicit_sym loss of the c4 weights on the first "
+             f"{PINNED_N} recorded truths {loss!r} (JAX package on the CPU "
+             f"{PINNED_EXPLICIT_VAL_LOSS!r}, rel {rel:.2e}, bound "
+             f"{PINNED_EXPLICIT_RTOL}); IoU@64 {float(acc):.4f}, D2 angle "
+             f"{float(ang):.4f} rad; explicit term windowed {win!r}, full "
+             f"sweep {full!r} (rel {rel_err(win, full):.2e})")
+    if not rel <= PINNED_EXPLICIT_RTOL:
+        raise RuntimeError(f"validation loss off the JAX package's by "
+                           f"{rel:.2e} (bound {PINNED_EXPLICIT_RTOL})")
+    if not float(acc) > 0.8:
+        raise RuntimeError(f"validation IoU {float(acc)} of trained weights")
+
+
+def step_split(dev, cfg, names, init_weights: str = "") -> dict:
+    """Device time of each stage of ``cfg``'s train step at its batch,
+    online data: the same calls as ``make_train_step``, with CUDA events
+    between them; median of 5 steps after one warm-up. ``names`` label
+    the five stages (render, forward, loss, backward, optimizer)."""
     import torch
 
     from sqtpu_torch.data.synthetic import make_batch
     from sqtpu_torch.models import build_model, params_vector
-    from sqtpu_torch.ops.kernels import implicit_loss_auto
+    from sqtpu_torch.training.loop import _compute_loss
     from sqtpu_torch.training.state import create_train_state
-    from sqtpu_torch.utils.config import TrainConfig
+    from sqtpu_torch.utils.checkpoint import load_weights_npz
 
-    cfg = TrainConfig(batch_size=LOSS_B)
-    model = build_model("resnet_sq").to(dev)
-    state = create_train_state(model, cfg)
+    model = build_model("resnet_sq")
+    if init_weights:
+        load_weights_npz(init_weights, model)
+    state = create_train_state(model.to(dev), cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
-    names = ("render (K3)", "forward", "loss (K1)", "backward (incl. K2)",
-             "optimizer")
     times = {k: [] for k in names}
     for i in range(6):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         ev[0].record()
-        imgs, _ = make_batch(gen, LOSS_B, IMAGE, "hard")
+        imgs, labels = make_batch(gen, cfg.batch_size, IMAGE, "hard")
         ev[1].record()
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        pred = params_vector(model(imgs))
+        pred = params_vector(model(imgs, remat=cfg.remat))
         ev[2].record()
-        loss = implicit_loss_auto(imgs[..., 0], pred, LOSS_N, TAU, SHARP)
+        loss = _compute_loss(cfg, pred, imgs, labels)
         ev[3].record()
         loss.backward()
         ev[4].record()
@@ -677,10 +961,43 @@ def phase_step_split(dev) -> dict:
                 times[name].append(ev[k].elapsed_time(ev[k + 1]))
     split = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
     total = sum(split.values())
-    progress(f"step split B={LOSS_B} (median of 5, ms): "
+    progress(f"step split {cfg.loss} B={cfg.batch_size} (median of 5, ms): "
              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-             + f"; sum {total:.3f} ms = {LOSS_B / total * 1e3:.1f} imgs/s")
+             + f"; sum {total:.3f} ms = {cfg.batch_size / total * 1e3:.1f} "
+             "imgs/s")
     return {"ms": split, "sum_ms": total}
+
+
+SSL1_SPLIT = ("render (K3)", "forward", "loss (K1)", "backward (incl. K2)",
+              "optimizer")
+
+
+def phase_step_split(dev) -> dict:
+    """The ssl1 recipe's step split, with cuDNN's deterministic algorithms
+    off and on in turns (off, on, on, off): what determinism costs."""
+    import torch
+
+    from sqtpu_torch.utils.config import TrainConfig
+
+    cfg = TrainConfig(batch_size=LOSS_B)
+    was = torch.backends.cudnn.deterministic
+    sums = {False: [], True: []}
+    out = {}
+    try:
+        for det in (False, True, True, False):
+            torch.backends.cudnn.deterministic = det
+            split = step_split(dev, cfg, SSL1_SPLIT)
+            sums[det].append(split["sum_ms"])
+            out.setdefault("deterministic" if det else "default", split)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    cost = min(sums[True]) / min(sums[False]) - 1.0
+    progress(f"cuDNN deterministic: step sums {sums[True]} ms against "
+             f"{sums[False]} ms by default: {100 * cost:+.1f}%")
+    out["deterministic_cost"] = cost
+    out["step_sums_ms"] = {"default": sums[False],
+                           "deterministic": sums[True]}
+    return out
 
 
 def _train_cli(ckpt_dir: str, *flags: str):
@@ -689,84 +1006,168 @@ def _train_cli(ckpt_dir: str, *flags: str):
     return entry.main([*flags, "--device", "cuda", "--ckpt-dir", ckpt_dir])
 
 
-def phase_trainer(dev, card: str) -> dict:
-    """``python -m sqtpu_torch.train`` in process: the ssl1 recipe for 2
-    epochs, resumed for a third; then the default config. Launch counts of
-    K3, K1 and K2 over each run."""
-    import shutil
+KERNEL_COUNTS = ("K3", "K1", "K2", "K4", "K5")
 
-    import numpy as np
-    import torch
 
-    from sqtpu_torch.models import build_model
+def counts() -> tuple:
+    """Launches of K3, K1, K2, K4 and K5 since their last reset."""
+    from sqtpu_torch.ops.kernels import explicit as KE
     from sqtpu_torch.ops.kernels import hardrender
     from sqtpu_torch.ops.kernels import implicit as K
 
-    def counts():
-        return hardrender.launches, K.fwd_launches, K.bwd_launches
+    return (hardrender.launches, K.fwd_launches, K.bwd_launches,
+            KE.fused_launches, KE.fwd_launches)
 
-    def reset():
-        hardrender.reset_launches()
-        K.reset_launches()
 
-    def check_run(what, hist, epochs, want, ckpt_dir):
-        got = counts()
-        if got != want:
-            raise RuntimeError(f"{what}: launches K3/K1/K2 {got}, expected "
-                               f"{want}")
-        lens = {k: len(v) for k, v in hist.items()}
-        if set(lens.values()) != {epochs}:
-            raise RuntimeError(f"{what}: history not epoch-aligned {lens}")
-        if not all(np.isfinite(hist["loss"])):
-            raise RuntimeError(f"{what}: train losses {hist['loss']}")
-        for name in ("best", "last"):
-            for ext in (".pt", ".meta.json"):
-                if not os.path.exists(os.path.join(ckpt_dir, name + ext)):
-                    raise RuntimeError(f"{what}: no {name}{ext} written")
-        with open(os.path.join(ckpt_dir, "train_metrics.jsonl")) as f:
-            rates = [json.loads(line)["imgs_per_sec"] for line in f]
-        progress(f"{what}: losses {[round(x, 6) for x in hist['loss']]}, "
-                 f"val {[round(x, 6) for x in hist['val_loss']]}, K3/K1/K2 "
-                 f"launches {got}, imgs/s per epoch "
-                 f"{[round(r, 1) for r in rates]} on {card}")
-        return got, rates
+def reset_counts() -> None:
+    from sqtpu_torch.ops.kernels import explicit as KE
+    from sqtpu_torch.ops.kernels import hardrender
+    from sqtpu_torch.ops.kernels import implicit as K
+
+    hardrender.reset_launches()
+    K.reset_launches()
+    KE.reset_launches()
+
+
+def check_run(what: str, hist: dict, epochs: int, want: tuple, ckpt_dir: str,
+              card: str):
+    """A trainer run's launch counts (read right after it), history,
+    checkpoints and imgs/s per epoch."""
+    import numpy as np
+
+    got = counts()
+    if got != want:
+        raise RuntimeError(f"{what}: launches {'/'.join(KERNEL_COUNTS)} "
+                           f"{got}, expected {want}")
+    lens = {k: len(v) for k, v in hist.items()}
+    if set(lens.values()) != {epochs}:
+        raise RuntimeError(f"{what}: history not epoch-aligned {lens}")
+    if not all(np.isfinite(hist["loss"])):
+        raise RuntimeError(f"{what}: train losses {hist['loss']}")
+    for name in ("best", "last"):
+        for ext in (".pt", ".meta.json"):
+            if not os.path.exists(os.path.join(ckpt_dir, name + ext)):
+                raise RuntimeError(f"{what}: no {name}{ext} written")
+    with open(os.path.join(ckpt_dir, "train_metrics.jsonl")) as f:
+        rates = [json.loads(line)["imgs_per_sec"] for line in f]
+    progress(f"{what}: losses {[round(x, 6) for x in hist['loss']]}, "
+             f"val {[round(x, 6) for x in hist['val_loss']]}, val IoU "
+             f"{[round(x, 4) for x in hist['val_acc']]}, launches "
+             f"{'/'.join(KERNEL_COUNTS)} {got}, imgs/s per epoch "
+             f"{[round(r, 1) for r in rates]} on {card}")
+    return got, rates
+
+
+def run_to_run(what: str, first: dict, second: dict) -> float:
+    """The largest relative gap between two runs' train and validation
+    losses; raises above RUN_TO_RUN_RTOL."""
+    gap = max(rel_err(b, a) for key in ("loss", "val_loss")
+              for a, b in zip(first[key], second[key]))
+    progress(f"{what}: two runs, largest relative loss gap {gap:.2e} "
+             f"(bound {RUN_TO_RUN_RTOL})")
+    if not gap <= RUN_TO_RUN_RTOL:
+        raise RuntimeError(f"{what}: runs differ by {gap:.2e}")
+    return gap
+
+
+def unmoved_params(model, start: dict) -> list:
+    import torch
+
+    return [n for n, p in model.named_parameters()
+            if torch.equal(p.detach().cpu(), start[n].cpu())]
+
+
+def phase_trainer(dev, card: str) -> dict:
+    """``python -m sqtpu_torch.train`` in process: the ssl1 recipe for 2
+    epochs, twice (the run-to-run bound), the first resumed for a third;
+    then the default config. Launch counts over each run."""
+    import shutil
+
+    import torch
+
+    from sqtpu_torch.models import build_model
 
     out = {}
     ssl_dir = tempfile.mkdtemp(prefix="sqtpu_torch_ssl1_")
+    again_dir = tempfile.mkdtemp(prefix="sqtpu_torch_ssl1_again_")
     default_dir = tempfile.mkdtemp(prefix="sqtpu_torch_default_")
     try:
         steps, val = TRAINER_STEPS, TRAINER_VAL_STEPS
-        reset()
-        state, hist = _train_cli(ssl_dir, *SSL1_RECIPE, "--max-epochs", "2")
         per_epoch = steps + val
+        want = (2 * per_epoch, 2 * per_epoch, 2 * steps, 0, 0)
+        reset_counts()
+        state, hist = _train_cli(ssl_dir, *SSL1_RECIPE, "--max-epochs", "2")
         out["ssl1"] = check_run("trainer, ssl1 recipe, 2 epochs", hist, 2,
-                                (2 * per_epoch, 2 * per_epoch, 2 * steps),
-                                ssl_dir)
+                                want, ssl_dir, card)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)  # the run's seed: its initial weights
             init = build_model("resnet_sq").state_dict()
-        unmoved = [n for n, p in state.model.named_parameters()
-                   if torch.equal(p.detach().cpu(), init[n])]
+        unmoved = unmoved_params(state.model, init)
         if unmoved:
             raise RuntimeError(f"parameters unchanged by training: {unmoved}")
-        reset()
+        reset_counts()
+        _, again = _train_cli(again_dir, *SSL1_RECIPE, "--max-epochs", "2")
+        check_run("trainer, ssl1 recipe, 2 epochs again", again, 2, want,
+                  again_dir, card)
+        out["ssl1_run_to_run"] = run_to_run("trainer, ssl1 recipe", hist,
+                                            again)
+        reset_counts()
         state, hist = _train_cli(ssl_dir, *SSL1_RECIPE, "--max-epochs", "3",
                                  "--continue-training", "--resume-from",
                                  "last")
         check_run("trainer, ssl1 recipe, resumed for epoch 2", hist, 3,
-                  (per_epoch, per_epoch, steps), ssl_dir)
-        reset()
+                  (per_epoch, per_epoch, steps, 0, 0), ssl_dir, card)
+        reset_counts()
         state, hist = _train_cli(
             default_dir, "--batch-size", "32", "--max-epochs", "2",
             "--steps-per-epoch", str(steps), "--val-steps", str(val))
         # the resident dataset (256 images, one chunk) and the epoch-0
         # compare images are one K3 launch each
         out["default"] = check_run("trainer, default config (synthetic)",
-                                   hist, 2, (2, 2 * per_epoch, 2 * steps),
-                                   default_dir)
+                                   hist, 2, (2, 2 * per_epoch, 2 * steps,
+                                             0, 0), default_dir, card)
     finally:
-        shutil.rmtree(ssl_dir, ignore_errors=True)
-        shutil.rmtree(default_dir, ignore_errors=True)
+        for d in (ssl_dir, again_dir, default_dir):
+            shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def phase_c4c_trainer(dev, card: str) -> dict:
+    """``python -m sqtpu_torch.train`` with the c4c recipe, warm-started
+    from the c4 artifact, for 2 epochs, twice (the run-to-run bound); its
+    launch counts (K3 per train and validation step, K4 per train step, K5
+    per validation step, no K1/K2) and its step split."""
+    import shutil
+
+    from sqtpu_torch.models import build_model
+    from sqtpu_torch.utils.checkpoint import load_weights_npz
+    from sqtpu_torch.utils.config import TrainConfig
+
+    steps, val = TRAINER_STEPS, TRAINER_VAL_STEPS
+    want = (2 * (steps + val), 0, 0, 2 * steps, 2 * val)
+    dirs = [tempfile.mkdtemp(prefix=f"sqtpu_torch_c4c{i}_") for i in (0, 1)]
+    out = {}
+    try:
+        hists = []
+        for i, ckpt_dir in enumerate(dirs):
+            reset_counts()
+            state, hist = _train_cli(ckpt_dir, *C4C_RECIPE, "--max-epochs",
+                                     "2")
+            got = check_run(f"trainer, c4c recipe, 2 epochs (run {i})", hist,
+                            2, want, ckpt_dir, card)
+            out.setdefault("c4c", got)
+            hists.append(hist)
+        start = load_weights_npz(WEIGHTS, build_model("resnet_sq"))
+        unmoved = unmoved_params(state.model, start.state_dict())
+        if unmoved:
+            raise RuntimeError(f"parameters unchanged by training: {unmoved}")
+        out["c4c_run_to_run"] = run_to_run("trainer, c4c recipe", *hists)
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    cfg = TrainConfig(batch_size=C4C_B, remat=True, learning_rate=5e-6,
+                      **C4C_LOSS)
+    out["split"] = step_split(dev, cfg, C4C_SPLIT, WEIGHTS)
     return out
 
 
@@ -835,15 +1236,27 @@ def main() -> int:
     progress("phase 9 validation loss matches the JAX package's")
     split = phase_step_split(dev)
     trainer = phase_trainer(dev, card)
-    progress("phase 10 trainer ran the ssl1 recipe, resumed, and the "
+    progress("phase 10 trainer ran the ssl1 recipe twice, resumed, and the "
              "default config")
+    fused_row, efwd_row = phase_explicit(dev)
+    progress("phase 11 K4/K5 match the emulation and the plain loss")
+    phase_explicit_step(truths, dev)
+    progress("phase 12 explicit_sym train step on the card matches the "
+             "CPU's")
+    phase_explicit_validation(truths, dev)
+    progress("phase 13 explicit_sym validation loss matches the JAX "
+             "package's")
+    c4c = phase_c4c_trainer(dev, card)
+    progress("phase 14 trainer ran the c4c recipe twice")
 
-    (k3, k1, k2), rates = trainer["ssl1"]
+    (k3, k1, k2, _, _), _ = trainer["ssl1"]
+    (c4c_k3, _, _, k4, k5), _ = c4c["c4c"]
     kernels = [
         {"name": "hardrender", "route": "cuda",
          "source": "sqtpu_torch/csrc/hardrender.cu",
          "replaces": "sqtpu/ops/kernels/hardrender.py:50",
-         "launches": k3, "launches_eval_random": eval_launches,
+         "launches": k3, "launches_c4c": c4c_k3,
+         "launches_eval_random": eval_launches,
          "launches_closed_loop": loop_launches, "library_ms": None,
          **row},
         {"name": "implicit_fwd", "route": "cuda",
@@ -854,11 +1267,25 @@ def main() -> int:
          "source": "sqtpu_torch/csrc/implicit.cu",
          "replaces": "sqtpu/ops/kernels/implicit.py:317",
          "launches": k2, **bwd_row},
+        {"name": "explicit_fused", "route": "cuda",
+         "source": "sqtpu_torch/csrc/explicit.cu",
+         "replaces": "sqtpu/ops/kernels/explicit.py:174",
+         "launches": k4, **fused_row},
+        {"name": "explicit_fwd", "route": "cuda",
+         "source": "sqtpu_torch/csrc/explicit.cu",
+         "replaces": "sqtpu/ops/kernels/explicit.py:150",
+         "launches": k5, **efwd_row},
     ]
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"train_step_split_ms": split,
+                      "c4c_step_split_ms": c4c["split"],
                       "trainer_imgs_per_s": {
-                          k: v[1] for k, v in trainer.items()}}), flush=True)
+                          "ssl1": trainer["ssl1"][1],
+                          "default": trainer["default"][1],
+                          "c4c": c4c["c4c"][1]},
+                      "run_to_run_rel_gap": {
+                          "ssl1": trainer["ssl1_run_to_run"],
+                          "c4c": c4c["c4c_run_to_run"]}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

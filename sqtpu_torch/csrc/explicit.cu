@@ -1,0 +1,220 @@
+// The explicit (occupancy-grid MSE) loss for Hopper (sm_90a): the fused value
+// and gradient K4, and the loss alone K5.
+//
+// K4 replaces sqtpu/ops/kernels/explicit.py::_fused_kernel and K5 replaces
+// sqtpu/ops/kernels/explicit.py::_fwd_kernel (the Pallas TPU kernels behind
+// explicit_loss_pallas). Same arithmetic as those kernels, point for point,
+// on the (N+1)³ explicit lattice (coordinates k/N, index 0 nudged to 1e-4):
+//
+//   occ = sigmoid(sharp (1 − F)) of the true and of the predicted
+//   superquadric, F as in sq_field.cuh; d = occ_t − occ_p
+//   K5: sum = Σ_points d²
+//   K4: the same sum, and the gradient of the 17 frame scalars of pred
+//       (a, e, R(q*)·t, R(q*)) with gF = dd²/dF_p = 2 d sharp occ_p (1 − occ_p)
+//       through the dF chain the implicit-loss kernels share
+//       (sq_field.cuh frame_grad_step)
+//
+// The wrapper scales the sums by 100/(N+1)³ and applies the upstream
+// cotangent, a scalar per sample, to K4's gradient; the true side gets no
+// gradient. Each sample sweeps the planes j = j_lo .. j_hi that its pred
+// parameters carry in slots 17-18 (the union of both shapes' z windows, or
+// the full [0, N]).
+//
+// Design. One thread per (x, y) lattice column of one sample; the grid is
+// (column blocks, batch), with (N+1)² columns per sample. A block reads its
+// sample's two 24-float parameter rows into shared memory once; each thread
+// loops over its sample's window with the squared-difference sum (K5) or the
+// sum and 17 gradient accumulators (K4) in registers. The TPU kernel's
+// 128-lane padding, its validity mask, its tiling of several samples per
+// program and its 256-sample chunks (limits of the TPU's vector and scalar
+// memories) have no counterpart: one launch covers any batch. Reductions are
+// deterministic, as in implicit.cu: a fixed shuffle tree inside each warp,
+// the warps in order into a (batch, blocks[, 17]) partial buffer, then
+// sum_partials in block order. No float atomics, so two runs give the same
+// bits.
+//
+// What bounds it on this card: operations. Per in-window point K5 evaluates
+// two fields (11 logf/expf each, with the sigmoids) and K4 adds the 17-term
+// gradient chain (4 more expf, about 20 divisions); the bytes are two
+// (B, 24) parameter rows in and B or B·24 floats out. This is the simple
+// version that is right first: accurate logf/expf (no fast-math, for parity
+// with the reference), no sharing of work between columns or planes. Making
+// it fast is later work.
+
+#include "sq_field.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+struct Column {
+  bool live;
+  float X, Y;
+};
+
+// Column idx = x·(N+1) + y of the explicit lattice, spacing 1/N.
+__device__ __forceinline__ Column column(int n, float inv) {
+  Column c;
+  const int m = n + 1;
+  const int idx = blockIdx.x * kThreads + threadIdx.x;
+  c.live = idx < m * m;
+  const int xi = idx / m;
+  const int yi = idx - xi * m;
+  c.X = coord(xi, inv);
+  c.Y = coord(yi, inv);
+  return c;
+}
+
+__device__ __forceinline__ void load_rows(const float* __restrict__ par_t,
+                                          const float* __restrict__ par_p,
+                                          float* st, float* sp, int b) {
+  if (threadIdx.x < kParStride) {
+    st[threadIdx.x] = par_t[(size_t)b * kParStride + threadIdx.x];
+    sp[threadIdx.x] = par_p[(size_t)b * kParStride + threadIdx.x];
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads)
+explicit_fwd_kernel(const float* __restrict__ par_t,
+                    const float* __restrict__ par_p,
+                    float* __restrict__ partial, int n, float sharp) {
+  __shared__ float st[kParStride], sp[kParStride];
+  __shared__ float red[kWarps];
+  const int b = blockIdx.y;
+  load_rows(par_t, par_p, st, sp, b);
+  const int lo = (int)sp[kSlotJLo], hi = (int)sp[kSlotJHi];
+  const float inv = (float)(1.0 / (double)n);
+  const Column c = column(n, inv);
+
+  float sum = 0.0f;
+  if (c.live) {
+    const Frame ft = load_frame(st), fp = load_frame(sp);
+    for (int j = lo; j <= hi; ++j) {
+      const float z = coord(j, inv);
+      const float d = occupancy(field_terms(ft, c.X, c.Y, z).F, sharp) -
+                      occupancy(field_terms(fp, c.X, c.Y, z).F, sharp);
+      sum += d * d;
+    }
+  }
+  sum = warp_sum(sum);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = sum;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.0f;
+    for (int k = 0; k < kWarps; ++k) s += red[k];
+    partial[(size_t)b * gridDim.x + blockIdx.x] = s;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+explicit_fused_kernel(const float* __restrict__ par_t,
+                      const float* __restrict__ par_p,
+                      float* __restrict__ partial_sum,
+                      float* __restrict__ partial_grad, int n, float sharp) {
+  __shared__ float st[kParStride], sp[kParStride];
+  __shared__ float red[kNPar + 1][kWarps];
+  const int b = blockIdx.y;
+  load_rows(par_t, par_p, st, sp, b);
+  const int lo = (int)sp[kSlotJLo], hi = (int)sp[kSlotJHi];
+  const float inv = (float)(1.0 / (double)n);
+  const Column c = column(n, inv);
+
+  float sum = 0.0f;
+  float acc[kNPar];
+#pragma unroll
+  for (int i = 0; i < kNPar; ++i) acc[i] = 0.0f;
+  if (c.live) {
+    const Frame ft = load_frame(st), fp = load_frame(sp);
+    for (int j = lo; j <= hi; ++j) {
+      const float z = coord(j, inv);
+      const float occ_t = occupancy(field_terms(ft, c.X, c.Y, z).F, sharp);
+      const Terms t = field_terms(fp, c.X, c.Y, z);
+      const float occ_p = occupancy(t.F, sharp);
+      const float d = occ_t - occ_p;
+      sum += d * d;
+      const float gF = 2.0f * d * sharp * occ_p * (1.0f - occ_p);
+      frame_grad_step(acc, t, gF, fp, c.X, c.Y, z);
+    }
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kNPar; ++i) {
+    const float v = warp_sum(acc[i]);
+    if (lane == 0) red[i][warp] = v;
+  }
+  sum = warp_sum(sum);
+  if (lane == 0) red[kNPar][warp] = sum;
+  __syncthreads();
+  if (threadIdx.x <= kNPar) {
+    float s = 0.0f;
+    for (int k = 0; k < kWarps; ++k) s += red[threadIdx.x][k];
+    const size_t blk = (size_t)b * gridDim.x + blockIdx.x;
+    if (threadIdx.x < kNPar) {
+      partial_grad[blk * kNPar + threadIdx.x] = s;
+    } else {
+      partial_sum[blk] = s;
+    }
+  }
+}
+
+int blocks_per_sample(int n) {
+  return ((n + 1) * (n + 1) + kThreads - 1) / kThreads;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Thread blocks per sample: the width of the wrapper's partial buffers.
+int sqtpu_explicit_blocks(int n) { return blocks_per_sample(n); }
+
+// K5. par_t, par_p: (batch, 24), partial: (batch, blocks), sums: (batch,),
+// all float32 on the device. Launches on `stream`; returns the first
+// cudaGetLastError() code (0 = ok).
+int sqtpu_explicit_fwd(const void* par_t, const void* par_p, void* partial,
+                       void* sums, int batch, int n, double sharp,
+                       void* stream) {
+  const int blocks = blocks_per_sample(n);
+  cudaStream_t s = (cudaStream_t)stream;
+  explicit_fwd_kernel<<<dim3(blocks, batch), kThreads, 0, s>>>(
+      (const float*)par_t, (const float*)par_p, (float*)partial, n,
+      (float)sharp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_partials<<<(batch + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      (const float*)partial, (float*)sums, batch, blocks, 1, 1);
+  return (int)cudaGetLastError();
+}
+
+// K4. partial_sum: (batch, blocks), partial_grad: (batch, blocks, 17),
+// sums: (batch,), dpar: (batch, 24) with slots 17-23 written as 0.
+int sqtpu_explicit_fused(const void* par_t, const void* par_p,
+                         void* partial_sum, void* partial_grad, void* sums,
+                         void* dpar, int batch, int n, double sharp,
+                         void* stream) {
+  const int blocks = blocks_per_sample(n);
+  cudaStream_t s = (cudaStream_t)stream;
+  explicit_fused_kernel<<<dim3(blocks, batch), kThreads, 0, s>>>(
+      (const float*)par_t, (const float*)par_p, (float*)partial_sum,
+      (float*)partial_grad, n, (float)sharp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_partials<<<(batch + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      (const float*)partial_sum, (float*)sums, batch, blocks, 1, 1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int outs = batch * kParStride;
+  sum_partials<<<(outs + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      (const float*)partial_grad, (float*)dpar, batch, blocks, kNPar,
+      kParStride);
+  return (int)cudaGetLastError();
+}
+
+const char* sqtpu_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

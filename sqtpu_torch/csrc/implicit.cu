@@ -19,6 +19,8 @@
 // and accumulates the 17 frame-parameter gradients through the log-space
 // dF chain with its exponent clamped at 30 (without the clamp, inf·0 gives
 // NaN outside the occupancy shell). It writes the image cotangent sign·g.
+// The field and its gradient chain live in sq_field.cuh, shared with the
+// explicit-loss kernels (explicit.cu).
 //
 // Design. One thread per (x, y) pixel of one sample; the grid is (pixel
 // blocks, batch). A block reads its sample's 24 packed scalars (a, e,
@@ -41,132 +43,16 @@
 // first: accurate logf/expf (no fast-math, for parity with the reference),
 // no sharing of work between pixels. Making it fast is later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "sq_field.cuh"
 
 namespace {
 
-constexpr int kParStride = 24;
-constexpr int kNPar = 17;
-constexpr int kSlotJLo = 17, kSlotJHi = 18, kSlotX0 = 19;
+constexpr int kSlotX0 = 19;  // x offset of the plane slab
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr float kTiny = 1.1754944e-38f;  // FLT_MIN
-constexpr float kClamp = 30.0f;
-constexpr float kExpClamp = 1.0686475e13f;  // exp(30)
-
-struct Frame {
-  float a1, a2, a3, e1, e2, t0, t1, t2;
-  float r[9];
-  float e21;  // e2 / e1
-};
-
-struct Terms {
-  float u, v, w, x2g, y2g, z2g, lx, ly, lz, lg, lh, F;
-};
-
-__device__ __forceinline__ Frame load_frame(const float* p) {
-  Frame f;
-  f.a1 = p[0]; f.a2 = p[1]; f.a3 = p[2];
-  f.e1 = p[3]; f.e2 = p[4];
-  f.t0 = p[5]; f.t1 = p[6]; f.t2 = p[7];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) f.r[i] = p[8 + i];
-  f.e21 = f.e2 / f.e1;
-  return f;
-}
-
-// Lattice index -> coordinate: 0 maps to 1e-4, k to k / (n - 1).
-__device__ __forceinline__ float coord(int k, float inv) {
-  return k == 0 ? 1e-4f : (float)k * inv;
-}
-
-__device__ __forceinline__ float guard(float s) {
-  return s + (s == 0.0f ? 1e-4f : 0.0f);
-}
-
-__device__ __forceinline__ Terms field_terms(const Frame& f, float X,
-                                             float Y, float z) {
-  Terms t;
-  t.u = (f.r[0] * X + f.r[1] * Y + f.r[2] * z - f.t0) / f.a1;
-  t.v = (f.r[3] * X + f.r[4] * Y + f.r[5] * z - f.t1) / f.a2;
-  t.w = (f.r[6] * X + f.r[7] * Y + f.r[8] * z - f.t2) / f.a3;
-  t.x2g = guard(t.u * t.u);
-  t.y2g = guard(t.v * t.v);
-  t.z2g = guard(t.w * t.w);
-  t.lx = logf(t.x2g);
-  t.ly = logf(t.y2g);
-  t.lz = logf(t.z2g);
-  const float A = expf(t.lx / f.e2);
-  const float B = expf(t.ly / f.e2);
-  const float C = expf(t.lz / f.e1);
-  t.lg = logf(A + B + kTiny);
-  const float E = expf(t.lg * f.e21);
-  t.lh = logf(E + C + kTiny);
-  t.F = expf(t.lh * f.e1);
-  return t;
-}
-
-__device__ __forceinline__ float occupancy(float F, float sharp) {
-  return 1.0f / (1.0f + expf(-(sharp * (1.0f - F))));
-}
-
-// min(x, c) that keeps a NaN, like jnp.minimum
-__device__ __forceinline__ float min_nan(float x, float c) {
-  return x > c ? c : x;
-}
-
-__device__ __forceinline__ float ex(float logterm) {
-  return expf(min_nan(logterm, kClamp));
-}
 
 __device__ __forceinline__ float sign_of(float d) {
   return d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : d);  // 0 -> 0, NaN -> NaN
-}
-
-// The 17-term chain of sqtpu/ops/kernels/implicit.py::_frame_grad_step.
-__device__ __forceinline__ void frame_grad_step(float* acc, const Terms& t,
-                                                float gF, const Frame& f,
-                                                float X, float Y, float z) {
-  const float lfh = (f.e1 - 1.0f) * t.lh;
-  const float dF_dx2 =
-      ex(lfh + (f.e21 - 1.0f) * t.lg + (1.0f / f.e2 - 1.0f) * t.lx);
-  const float dF_dy2 =
-      ex(lfh + (f.e21 - 1.0f) * t.lg + (1.0f / f.e2 - 1.0f) * t.ly);
-  const float dF_dz2 = ex(lfh + (1.0f / f.e1 - 1.0f) * t.lz);
-  const float gx = gF * dF_dx2 * 2.0f * t.u;
-  const float gy = gF * dF_dy2 * 2.0f * t.v;
-  const float gz = gF * dF_dz2 * 2.0f * t.w;
-  acc[0] += -gx * t.u / f.a1;
-  acc[1] += -gy * t.v / f.a2;
-  acc[2] += -gz * t.w / f.a3;
-  const float le = f.e21 * t.lg;
-  const float ex_le = ex(lfh + le);
-  acc[3] += gF * (min_nan(t.F, kExpClamp) * t.lh -
-                  (ex_le * t.lg * f.e2 + dF_dz2 * t.z2g * t.lz) / f.e1);
-  acc[4] += gF * (ex_le * t.lg -
-                  (dF_dx2 * t.x2g * t.lx + dF_dy2 * t.y2g * t.ly) / f.e2);
-  acc[5] += -gx / f.a1;
-  acc[6] += -gy / f.a2;
-  acc[7] += -gz / f.a3;
-  acc[8] += gx * X / f.a1;
-  acc[9] += gx * Y / f.a1;
-  acc[10] += gx * z / f.a1;
-  acc[11] += gy * X / f.a2;
-  acc[12] += gy * Y / f.a2;
-  acc[13] += gy * z / f.a2;
-  acc[14] += gz * X / f.a3;
-  acc[15] += gz * Y / f.a3;
-  acc[16] += gz * z / f.a3;
-}
-
-// Fixed-order sum over the 32 lanes; lane 0 holds the result.
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
 }
 
 struct Pixel {
@@ -285,24 +171,6 @@ implicit_bwd_kernel(const float* __restrict__ par, const float* __restrict__ g,
     for (int k = 0; k < kWarps; ++k) s += red[threadIdx.x][k];
     partial[((size_t)b * gridDim.x + blockIdx.x) * kNPar + threadIdx.x] = s;
   }
-}
-
-// out[b * out_stride + c] = sum over k = 0 .. blocks-1, in order, of
-// partial[(b * blocks + k) * width + c] for c < width, and 0 for the rest
-// of the row.
-__global__ void sum_partials(const float* __restrict__ partial,
-                             float* __restrict__ out, int batch, int blocks,
-                             int width, int out_stride) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= batch * out_stride) return;
-  const int b = t / out_stride, c = t - b * out_stride;
-  float s = 0.0f;
-  if (c < width) {
-    for (int k = 0; k < blocks; ++k) {
-      s += partial[((size_t)b * blocks + k) * width + c];
-    }
-  }
-  out[t] = s;
 }
 
 int blocks_per_sample(int n, int n_cols) {

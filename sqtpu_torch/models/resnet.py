@@ -11,16 +11,24 @@ stride 2 included; (3, 3) on the 7x7 stem; the max pool pads (1, 1) with
 −inf. BatchNorm follows flax in both modes (:class:`BatchNorm`), and a
 model built here starts from flax's initial distribution
 (:func:`init_like_flax`).
+
+``forward(x, remat=True)`` recomputes the encoder's stem and stages during
+the backward instead of keeping their activations (the JAX package's
+``remat``, ``jax.checkpoint`` of the loss function): memory for operations,
+the same numbers. The recompute leaves the BatchNorm running statistics
+alone, so they move once per step, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sqtpu_torch.models.heads import (
     PositionHead, RotationHead, ShapeHead, SizeHead,
@@ -35,13 +43,19 @@ class BatchNorm(nn.BatchNorm2d):
     normalized with its biased variance (as torch does), and the running
     variance is updated with that same biased variance, where torch would
     use the unbiased one. Eval mode is torch's own (running statistics).
-    ``num_batches_tracked`` is left alone: flax keeps no such counter."""
+    ``num_batches_tracked`` is left alone: flax keeps no such counter.
+    With ``update_stats`` off (the recompute of a checkpointed stage) the
+    running statistics stay as they are."""
+
+    update_stats = True
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
+        if not self.update_stats:
+            return y
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(1.0 - self.momentum).add_(
@@ -53,6 +67,27 @@ class BatchNorm(nn.BatchNorm2d):
 
 def _bn(features: int) -> BatchNorm:
     return BatchNorm(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+@contextlib.contextmanager
+def _running_stats_frozen(module: nn.Module):
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            del bn.update_stats  # back to the class default
+
+
+def checkpointed(fn, module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` with its activations recomputed in the backward; the
+    recompute does not move the BatchNorm statistics of ``module``."""
+    return checkpoint(
+        fn, x, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(),
+                            _running_stats_frozen(module)))
 
 
 # flax's default kernel init, lecun_normal: a normal truncated at ±2
@@ -116,22 +151,28 @@ class ResNet18(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, padding=3, bias=False)
         self.bn1 = _bn(64)
-        self.block_names = []
+        self.stages = []  # the blocks of each stage, in order
         cin = 64
         for stage, (n_blocks, width) in enumerate(zip(stage_sizes, widths)):
+            blocks = []
             for block in range(n_blocks):
                 stride = 2 if (stage > 0 and block == 0) else 1
                 name = f"layer{stage + 1}_{block}"
                 self.add_module(name, BasicBlock(cin, width, stride))
-                self.block_names.append(name)
+                blocks.append(getattr(self, name))
                 cin = width
+            self.stages.append(nn.Sequential(*blocks))
         self.out_features = cin
 
-    def forward(self, x):
+    def _stem(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, 2, padding=1)  # pads with -inf
-        for name in self.block_names:
-            x = getattr(self, name)(x)
+        return F.max_pool2d(x, 3, 2, padding=1)  # pads with -inf
+
+    def forward(self, x, remat: bool = False):
+        """``remat``: recompute the stem and each stage in the backward."""
+        parts = [(self._stem, self)] + [(s, s) for s in self.stages]
+        for fn, module in parts:
+            x = checkpointed(fn, module, x) if remat else fn(x)
         return torch.mean(x, dim=(2, 3))
 
 
@@ -150,12 +191,13 @@ class ResNetSQ(nn.Module):
         self.head_rotation = RotationHead(fcn)
         init_like_flax(self)
 
-    def forward(self, x):
-        """``x``: (B, H, W, 1) or (B, H, W) depth images in [0, 1]."""
+    def forward(self, x, remat: bool = False):
+        """``x``: (B, H, W, 1) or (B, H, W) depth images in [0, 1];
+        ``remat`` recomputes the encoder in the backward."""
         if x.ndim == 3:
             x = x[..., None]
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
-        h = F.leaky_relu(self.fc1(self.encoder(x)), 0.01)
+        h = F.leaky_relu(self.fc1(self.encoder(x, remat)), 0.01)
         h = F.leaky_relu(self.fc2(h), 0.01)
         return (self.head_size(h), self.head_shape(h),
                 self.head_position(h), self.head_rotation(h))

@@ -1,7 +1,7 @@
 """Superquadric geometry in PyTorch: parameter layout, grids, and the
 inside-outside field.
 
-Counterpart of ``sqtpu/ops/geometry.py`` (:54-190, :391-412). Every
+Counterpart of ``sqtpu/ops/geometry.py`` (:54-190, :356-412). Every
 function works on the canonical 12-vector
 ``[a1,a2,a3, e1,e2, t1,t2,t3, qx,qy,qz,qw]`` (normalized units: a, t in
 [0, 1] ~ /255 world units) and broadcasts over a leading batch dimension
@@ -129,6 +129,42 @@ def field_grid(ax_x: torch.Tensor, ax_y: torch.Tensor, ax_z: torch.Tensor,
             + s(rot[..., i, 2]) * Z
         coord.append(((c - s(tr[..., i])) / s(a[..., i])) ** 2)
     return _power_chain(*coord, s(e[..., 0]), s(e[..., 1]), guard=guard)
+
+
+def betaln(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """log B(x, y) = lgamma(x) + lgamma(y) − lgamma(x + y) (torch has no
+    betaln; the JAX package takes ``jax.scipy.special.betaln``)."""
+    return torch.lgamma(x) + torch.lgamma(y) - torch.lgamma(x + y)
+
+
+def _beta(x, y):
+    return torch.exp(betaln(x, y))
+
+
+def volume(p: torch.Tensor) -> torch.Tensor:
+    """Analytic volume 2·a1a2a3·e1e2·B(e1/2+1, e1)·B(e2/2, e2/2); a sphere
+    (e = (1, 1)) gives 4/3·π·a³."""
+    a, e, _, _ = split_params(p)
+    e1, e2 = e[..., 0], e[..., 1]
+    prod_a = a[..., 0] * a[..., 1] * a[..., 2]
+    return (2.0 * prod_a * e1 * e2
+            * _beta(e1 / 2 + 1, e1) * _beta(e2 / 2, e2 / 2))
+
+
+def inertia(p: torch.Tensor) -> torch.Tensor:
+    """Principal moments (Ixx, Iyy, Izz) about the superquadric's own
+    frame at unit density (Jaklič/Solina closed forms); a sphere of radius
+    a gives 8πa⁵/15 for each."""
+    a, e, _, _ = split_params(p)
+    a1, a2, a3 = a[..., 0], a[..., 1], a[..., 2]
+    e1, e2 = e[..., 0], e[..., 1]
+    coef = 0.5 * a1 * a2 * a3 * e1 * e2
+    b_xy = _beta(1.5 * e2, 0.5 * e2) * _beta(0.5 * e1, 2.0 * e1 + 1.0)
+    b_z = 4.0 * _beta(0.5 * e2, 0.5 * e2 + 1.0) * _beta(1.5 * e1, e1 + 1.0)
+    ixx = coef * (a2**2 * b_xy + a3**2 * b_z)
+    iyy = coef * (a1**2 * b_xy + a3**2 * b_z)
+    izz = coef * (a1**2 + a2**2) * b_xy
+    return torch.stack([ixx, iyy, izz], dim=-1)
 
 
 def z_support_window(a: torch.Tensor, rot: torch.Tensor, t: torch.Tensor,

@@ -4,9 +4,10 @@ and load it with ``ctypes``.
 Each source under ``sqtpu_torch/csrc/`` exposes a plain ``extern "C"``
 interface, so no PyTorch header is compiled and a build takes seconds.
 The library lands in ``sqtpu_torch/build/`` (not tracked by git) under a
-name that carries the hash of the source and the flags, so a changed
-source is rebuilt and an unchanged one is loaded as it is. Nothing here
-runs at import: the first call that needs a kernel builds it.
+name that carries the hash of the source, the headers it includes and the
+flags, so a changed source or header is rebuilt and an unchanged one is
+loaded as it is. Nothing here runs at import: the first call that needs a
+kernel builds it.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -47,11 +49,32 @@ def nvcc_path() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list[str]:
+    """``csrc/<name>.cu`` and every file under ``csrc/`` it includes with
+    ``#include "..."``, directly or through another header, in the order
+    first reached."""
+    order, todo = [], [name + ".cu"]
+    while todo:
+        rel = todo.pop(0)
+        if rel in order:
+            continue
+        order.append(rel)
+        with open(os.path.join(CSRC_DIR, rel), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return [os.path.join(CSRC_DIR, rel) for rel in order]
+
+
 def library_path(name: str) -> str:
     """Where the library of ``csrc/<name>.cu`` is built for the current
-    source and flags."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    source, the headers it includes and the flags: an edit to any of them
+    gives another path, so a stale library is never loaded."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

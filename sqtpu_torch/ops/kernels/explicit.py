@@ -1,0 +1,346 @@
+"""The explicit loss's fused value and gradient, and its loss alone, as
+hand-written CUDA kernels.
+
+Counterpart of ``sqtpu/ops/kernels/explicit.py``: K4 replaces the Pallas
+TPU kernel ``_fused_kernel`` (launched by ``_fused_call``), K5 replaces
+``_fwd_kernel`` (launched by ``_fwd_call``). Their source is
+``sqtpu_torch/csrc/explicit.cu``, which shares the field and its gradient
+chain with the implicit-loss kernels (``csrc/sq_field.cuh``); it is built
+with ``nvcc`` at first use and called through ``ctypes``.
+
+Per sample, both kernels sweep the (N+1)³ explicit lattice (coordinates
+k/N, index 0 nudged to 1e-4) plane by plane over the sample's z window and
+sum (occ_t − occ_p)² with occ = sigmoid(sharp·(1 − F)). Under
+differentiation K4 returns, from the same sweep, the gradient of that sum
+with respect to pred's 17 frame scalars; the backward only scales it by
+the upstream cotangent. Where nothing is differentiated (validation,
+evaluation), K5 computes the sum alone. The true side gets no gradient:
+labels are constants in every consumer, as the JAX kernel's contract says
+(use :func:`sqtpu_torch.ops.losses.explicit_loss` for d/d true).
+
+The torch side is the JAX wrapper's, step for step: the clamp, R(q*) and
+R(q*)·t of both sides (:func:`frame_params`, shared with the implicit
+wrapper) stay in torch autograd around a ``torch.autograd.Function``; the
+window (:func:`z_window_indices`) is the union of both clamped shapes'
+z-support boxes ± ``z_margin`` and carries no gradient; the per-sample sums
+are scaled by 100/(N+1)³. The JAX wrapper cuts the batch into chunks of
+256 and tiles several samples per program, limits of the TPU's memories;
+the CUDA kernels take the whole batch in one launch. The JAX wrapper sends
+N < 8 to XLA; the CUDA kernels take every N ≥ 2 or raise.
+
+Beside the kernels, :func:`emulate_fwd` and :func:`emulate_fused` are a
+torch emulation of their own algorithm (same lattice, window and gradient
+chain), the analogue of Pallas interpret mode. The tests hold it against
+the JAX kernels in interpret mode and against autograd of the plain loss;
+on the card the kernels are held against it. The main path never calls it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from sqtpu_torch.ops import geometry
+from sqtpu_torch.ops import losses
+from sqtpu_torch.ops import quaternion as quat
+from sqtpu_torch.ops.kernels.implicit import (
+    MAX_BATCH, N_PAR, PAR_STRIDE, SLOT_JHI, SLOT_JLO, _field_terms,
+    _frame_grad_step, _occ, _raise_on, _sweep_setup, _zval, check_operand,
+    frame_params,
+)
+
+SHARP = 5.0      # the reference's occupancy sharpness
+Z_MARGIN = 0.08  # window margin at SHARP, normalized z units
+
+# Launches of K4 and K5 since the last reset_launches(); each wrapper adds
+# one where it launches its kernel and nowhere else.
+fused_launches = 0
+fwd_launches = 0
+
+
+def reset_launches() -> None:
+    global fused_launches, fwd_launches
+    fused_launches = fwd_launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    from sqtpu_torch.ops.kernels import _build
+
+    lib = _build.load("explicit")
+    if not getattr(lib, "_sqtpu_typed", False):
+        ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.sqtpu_explicit_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f64,
+                                           ptr]
+        lib.sqtpu_explicit_fwd.restype = i32
+        lib.sqtpu_explicit_fused.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
+                                             i32, i32, f64, ptr]
+        lib.sqtpu_explicit_fused.restype = i32
+        lib.sqtpu_explicit_blocks.argtypes = [i32]
+        lib.sqtpu_explicit_blocks.restype = i32
+        lib.sqtpu_error_string.argtypes = [i32]
+        lib.sqtpu_error_string.restype = ctypes.c_char_p
+        lib._sqtpu_typed = True
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# The wrapper's torch side (sqtpu/ops/kernels/explicit.py:290-363)
+# ---------------------------------------------------------------------------
+
+def default_margin(sharp: float) -> float:
+    """The window margin for this sharpness: the skipped tails decay like
+    exp(−sharp·(F − 1)), so a sharper occupancy needs less."""
+    return max(Z_MARGIN * SHARP / sharp, 0.02)
+
+
+@torch.no_grad()
+def z_window_indices(true_p: torch.Tensor, pred_p: torch.Tensor, n: int,
+                     margin: float = Z_MARGIN):
+    """Per-sample lattice window [j_lo, j_hi] on the explicit axis (z_j =
+    j/N) covering the union of both clamped superquadrics' z-support boxes
+    ± ``margin``, as float32 indices with no gradient."""
+    def win(p):
+        pp = geometry.clamp_params(p.to(torch.float32))
+        a, e, t, q = geometry.split_params(pp)
+        rot = quat.to_matrix(quat.conjugate(q))
+        zlo, zhi, _ = geometry.z_support_window(a, rot, t, 2)
+        return zlo, zhi
+
+    lo_t, hi_t = win(true_p)
+    lo_p, hi_p = win(pred_p)
+    zlo = torch.clamp(torch.minimum(lo_t, lo_p) - margin, 0.0, 1.0)
+    zhi = torch.clamp(torch.maximum(hi_t, hi_p) + margin, 0.0, 1.0)
+    jlo = torch.ceil(zlo * n)
+    jhi = torch.maximum(torch.floor(zhi * n), jlo)
+    return jlo, jhi
+
+
+def pack_params(true_p: torch.Tensor, pred_p: torch.Tensor, n: int,
+                z_window: bool = True, z_margin: float = Z_MARGIN):
+    """(B, 12) true and predicted params -> the kernels' two (B, 24) rows:
+    the frame scalars of each, with pred's window (or the full sweep
+    [0, N]) in slots 17-18. The true row carries no gradient; pred's is
+    differentiable in the frame scalars."""
+    par_t = frame_params(true_p.detach()).contiguous()
+    par = frame_params(pred_p)
+    tail = torch.zeros((par.shape[0], PAR_STRIDE - N_PAR), dtype=par.dtype,
+                       device=par.device)
+    if z_window:
+        jlo, jhi = z_window_indices(true_p, pred_p, n, z_margin)
+        tail[:, SLOT_JLO - N_PAR] = jlo
+        tail[:, SLOT_JHI - N_PAR] = jhi
+    else:
+        tail[:, SLOT_JHI - N_PAR] = float(n)
+    par_p = torch.cat([par[:, :N_PAR], tail], dim=-1).contiguous()
+    return par_t, par_p
+
+
+# ---------------------------------------------------------------------------
+# The emulation of the kernels' algorithm (the analogue of interpret mode)
+# ---------------------------------------------------------------------------
+
+def _sweep(par_t: torch.Tensor, par_p: torch.Tensor, n: int, sharp: float,
+           grad: bool):
+    """Both kernels' sweep in torch: the explicit lattice is the implicit
+    one with N+1 points a side (spacing 1/N). Returns the (B,) sums and,
+    with ``grad``, the (B, 24) frame gradient of pred (slots 17-23 zero)."""
+    sw = _sweep_setup(par_p, n + 1, n + 1)
+    pp_t = [par_t[:, i:i + 1] for i in range(N_PAR)]
+    total = torch.zeros_like(sw.X)
+    acc = [torch.zeros_like(sw.X) for _ in range(N_PAR)] if grad else None
+    for j in range(int(sw.lo.min()), int(sw.hi.max()) + 1):
+        active = (sw.lo <= j) & (j <= sw.hi)
+        z = _zval(j, sw.inv, par_p)
+        occ_t = _occ(_field_terms(pp_t, sw.X, sw.Y, z)["F"], sharp)
+        T = _field_terms(sw.pp, sw.X, sw.Y, z)
+        occ_p = _occ(T["F"], sharp)
+        d = occ_t - occ_p
+        total = total + torch.where(active, d * d, 0.0)
+        if grad:
+            gF = torch.where(active,
+                             2.0 * d * sharp * occ_p * (1.0 - occ_p), 0.0)
+            _frame_grad_step(acc, T, gF, sw.pp, sw.X, sw.Y, z)
+    sums = total.sum(dim=-1)
+    if not grad:
+        return sums
+    dpar = torch.zeros_like(par_p)
+    dpar[:, :N_PAR] = torch.stack([a.sum(dim=-1) for a in acc], dim=-1)
+    return sums, dpar
+
+
+def emulate_fwd(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
+                sharp: float) -> torch.Tensor:
+    """K5's algorithm in torch: two (B, 24) rows -> (B,) sums of
+    (occ_t − occ_p)² over each sample's window; the dtype is the rows'."""
+    return _sweep(par_t, par_p, n, sharp, grad=False)
+
+
+def emulate_fused(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
+                  sharp: float):
+    """K4's algorithm in torch: -> the (B,) sums and the (B, 24) gradient
+    of each sum with respect to pred's frame scalars."""
+    return _sweep(par_t, par_p, n, sharp, grad=True)
+
+
+# ---------------------------------------------------------------------------
+# The kernels
+# ---------------------------------------------------------------------------
+
+def _check_operands(n: int, par_t: torch.Tensor, par_p: torch.Tensor) -> None:
+    """Raise unless both rows are (B, 24) float32, contiguous and on one
+    CUDA device, with B and N within what the kernels take."""
+    b = par_p.shape[0]
+    if not 0 < b <= MAX_BATCH:
+        raise ValueError(f"batch {b} outside the kernels' grid "
+                         f"(1..{MAX_BATCH})")
+    if n < 2:
+        raise ValueError(f"need render size n >= 2, got {n}")
+    for name, t in (("pred params", par_p), ("true params", par_t)):
+        check_operand(name, t, (b, PAR_STRIDE), par_p.device)
+
+
+def cuda_fwd(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
+             sharp: float) -> torch.Tensor:
+    """K5 on the card: same contract as :func:`emulate_fwd`."""
+    global fwd_launches
+    _check_operands(n, par_t, par_p)
+    lib = _lib()
+    b = par_p.shape[0]
+    blocks = lib.sqtpu_explicit_blocks(n)
+    partial = torch.empty((b, blocks), dtype=torch.float32,
+                          device=par_p.device)
+    sums = torch.empty((b,), dtype=torch.float32, device=par_p.device)
+    with torch.cuda.device(par_p.device):
+        stream = torch.cuda.current_stream(par_p.device).cuda_stream
+        err = lib.sqtpu_explicit_fwd(par_t.data_ptr(), par_p.data_ptr(),
+                                     partial.data_ptr(), sums.data_ptr(), b,
+                                     n, float(sharp), stream)
+    _raise_on(lib, err, "explicit loss (K5)")
+    fwd_launches += 1
+    return sums
+
+
+def cuda_fused(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
+               sharp: float):
+    """K4 on the card: same contract as :func:`emulate_fused`."""
+    global fused_launches
+    _check_operands(n, par_t, par_p)
+    lib = _lib()
+    b = par_p.shape[0]
+    blocks = lib.sqtpu_explicit_blocks(n)
+    dev = par_p.device
+    partial_sum = torch.empty((b, blocks), dtype=torch.float32, device=dev)
+    partial_grad = torch.empty((b, blocks, N_PAR), dtype=torch.float32,
+                               device=dev)
+    sums = torch.empty((b,), dtype=torch.float32, device=dev)
+    dpar = torch.empty((b, PAR_STRIDE), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sqtpu_explicit_fused(
+            par_t.data_ptr(), par_p.data_ptr(), partial_sum.data_ptr(),
+            partial_grad.data_ptr(), sums.data_ptr(), dpar.data_ptr(), b, n,
+            float(sharp), stream)
+    _raise_on(lib, err, "explicit loss value and gradient (K4)")
+    fused_launches += 1
+    return sums, dpar
+
+
+class _Impl(NamedTuple):
+    fwd: object
+    fused: object
+
+
+CUDA = _Impl(cuda_fwd, cuda_fused)
+EMULATION = _Impl(emulate_fwd, emulate_fused)
+
+
+class _ExplicitCore(torch.autograd.Function):
+    """Per-sample sums with the gradient from the same sweep: the
+    ``custom_vjp`` ``_core`` of the JAX package (:268-287), differentiated
+    path. The true row gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, par_t, par_p, n, sharp, impl):
+        sums, dpar = impl.fused(par_t, par_p, n, sharp)
+        ctx.save_for_backward(dpar)
+        return sums
+
+    @staticmethod
+    def backward(ctx, g):
+        (dpar,) = ctx.saved_tensors
+        return None, g[:, None] * dpar, None, None, None
+
+
+def _check_inputs(true_p: torch.Tensor, pred_p: torch.Tensor, n: int) -> None:
+    if pred_p.ndim != 2 or pred_p.shape[-1] != geometry.N_PARAMS \
+            or true_p.shape != pred_p.shape:
+        raise ValueError(f"true and pred params must both be (B, 12), got "
+                         f"{tuple(true_p.shape)} and {tuple(pred_p.shape)}")
+    if n < 2:
+        raise ValueError(f"render size must be >= 2, got {n}")
+
+
+def _sweep_loss(impl: _Impl, true_p, pred_p, n, reduce, z_window, z_margin,
+                sharp):
+    sharp = float(sharp)
+    if z_margin is None:
+        z_margin = default_margin(sharp)
+    par_t, par_p = pack_params(true_p, pred_p, n, z_window, z_margin)
+    # Inside Function.forward grad mode is always off, so the choice of
+    # the loss-only kernel is made here.
+    if torch.is_grad_enabled() and pred_p.requires_grad:
+        sums = _ExplicitCore.apply(par_t, par_p, n, sharp, impl)
+    else:
+        sums = impl.fwd(par_t, par_p.detach(), n, sharp)
+    per_sample = sums * (100.0 / (n + 1) ** 3)  # mean over (N+1)³, ×100
+    return torch.mean(per_sample) if reduce else per_sample
+
+
+def explicit_loss_cuda(true_p: torch.Tensor, pred_p: torch.Tensor,
+                       render_size: int = 32, reduce: bool = True,
+                       z_window: bool = True, z_margin: float | None = None,
+                       sharp: float = SHARP) -> torch.Tensor:
+    """The explicit loss through K4 (value and pred gradient) or K5 (value
+    alone, when nothing is differentiated) for CUDA float32 params; the
+    plain :func:`sqtpu_torch.ops.losses.explicit_loss` for CPU tensors
+    (which, like the JAX package's XLA path, sweeps the full lattice and
+    differentiates both sides). ``z_window=True`` sweeps only each
+    sample's window ± ``z_margin`` (None: :func:`default_margin`);
+    ``z_window=False`` sweeps all N+1 planes. On a CUDA tensor it launches
+    the kernels or raises."""
+    _check_inputs(true_p, pred_p, render_size)
+    if pred_p.device.type == "cpu":
+        return losses.explicit_loss(true_p, pred_p, render_size, reduce,
+                                    sharp)
+    if pred_p.device.type != "cuda":
+        raise ValueError(f"no kernel for device {pred_p.device}")
+    if pred_p.dtype != torch.float32 or true_p.dtype != torch.float32:
+        raise TypeError(f"the explicit-loss kernels take float32 params, "
+                        f"got {true_p.dtype} and {pred_p.dtype}")
+    if true_p.device != pred_p.device:
+        raise ValueError(f"true params on {true_p.device}, pred params on "
+                         f"{pred_p.device}")
+    return _sweep_loss(CUDA, true_p, pred_p, render_size, reduce, z_window,
+                       z_margin, sharp)
+
+
+def explicit_loss_emulated(true_p: torch.Tensor, pred_p: torch.Tensor,
+                           render_size: int = 32, reduce: bool = True,
+                           z_window: bool = True,
+                           z_margin: float | None = None,
+                           sharp: float = SHARP) -> torch.Tensor:
+    """The same loss through the torch emulation of K4 and K5, on any
+    device, in ``pred_p``'s floating dtype."""
+    _check_inputs(true_p, pred_p, render_size)
+    return _sweep_loss(EMULATION, true_p.to(pred_p.dtype), pred_p,
+                       render_size, reduce, z_window, z_margin, sharp)
+
+
+def window_points(par_p: torch.Tensor, n: int) -> int:
+    """In-window (x, y, z) lattice points the kernels visit for these
+    packed pred params: Σ_b (j_hi − j_lo + 1) · (N+1)²."""
+    span = par_p[:, SLOT_JHI].to(torch.int64) - par_p[:, SLOT_JLO].to(
+        torch.int64) + 1
+    return int(span.sum()) * (n + 1) ** 2

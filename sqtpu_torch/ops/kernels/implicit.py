@@ -329,16 +329,23 @@ def _check_operands(n: int, n_cols: int, par: torch.Tensor, planes=(),
     want += [("plane", t, (b, n * n_cols)) for t in planes]
     want += [("cotangent", t, (b,)) for t in vectors]
     for name, t, shape in want:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, the "
-                             f"kernel takes {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device.type != "cuda" or t.device != par.device:
-            raise ValueError(f"{name} must be on the params' CUDA device, "
-                             f"got {t.device}")
+        check_operand(name, t, shape, par.device)
+
+
+def check_operand(name: str, t: torch.Tensor, shape: tuple,
+                  device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
+    the CUDA ``device``: what a kernel's launcher takes."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, the "
+                         f"kernel takes {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device.type != "cuda" or t.device != device:
+        raise ValueError(f"{name} must be on the params' CUDA device, "
+                         f"got {t.device}")
 
 
 def _raise_on(lib, err: int, what: str) -> None:

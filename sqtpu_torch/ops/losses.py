@@ -1,8 +1,12 @@
 """Losses and the superquadric's gauge group, in PyTorch.
 
-Counterpart of ``sqtpu/ops/losses.py``: the implicit (self-supervised)
-depth loss (:38-43, :87-106) and the gauge part (:166-270). The other
-losses belong to later slices (ROADMAP.md Slices B and D).
+Counterpart of ``sqtpu/ops/losses.py``: the explicit occupancy-grid MSE
+(:49-79), the implicit (self-supervised) depth loss (:38-43, :87-106), the
+quaternion and gauge-aware supervised losses (:155-318) and the plain
+parameter MSE (:325-340). The least-squares loss and the Keras losses
+belong to later slices (ROADMAP.md Slices D and F). Gradients are torch
+autograd's; these are the plain versions the kernels K1/K2 and K4/K5 are
+held against.
 """
 
 from __future__ import annotations
@@ -14,11 +18,36 @@ from sqtpu_torch.ops import quaternion as quat
 from sqtpu_torch.ops.image import nearest_resize
 from sqtpu_torch.ops.render import render_depth_soft_batch
 
+
 def _as_bhw(img: torch.Tensor) -> torch.Tensor:
     """(B, H, W) or (B, 1, H, W) images -> (B, H, W)."""
     if img.ndim == 4:
         return img[:, 0]
     return img
+
+
+def occupancy_explicit(p: torch.Tensor, render_size: int,
+                       sharp: float = 5.0) -> torch.Tensor:
+    """sigmoid(sharp·(1 − F)) of a (B, 12) batch on the (N+1)³ explicit
+    lattice (coordinates k/N, the zero nudged to 1e-4), params clamped:
+    (B, N+1, N+1, N+1). The reference fixes sharp at 5."""
+    ax = geometry.make_axis(render_size, "explicit", dtype=p.dtype,
+                            device=p.device)
+    f = geometry.field_grid(ax, ax, ax, geometry.clamp_params(p), guard=True)
+    return torch.sigmoid(sharp * (1.0 - f))
+
+
+def explicit_loss(true_p: torch.Tensor, pred_p: torch.Tensor,
+                  render_size: int = 32, reduce: bool = True,
+                  sharp: float = 5.0) -> torch.Tensor:
+    """Occupancy-grid MSE ×100 over the (N+1)³ lattice (the reference's
+    ×100 gradient scale is kept). The plain PyTorch version of the kernels
+    K4 and K5 (``sqtpu_torch/csrc/explicit.cu``), differentiable in both
+    arguments."""
+    occ_t = occupancy_explicit(true_p, render_size, sharp)
+    occ_p = occupancy_explicit(pred_p, render_size, sharp)
+    per_sample = torch.mean((occ_t - occ_p) ** 2, dim=(1, 2, 3)) * 100.0
+    return torch.mean(per_sample) if reduce else per_sample
 
 
 def implicit_loss(true_img: torch.Tensor, pred_p: torch.Tensor,
@@ -83,6 +112,67 @@ def param_gauge_orbit(p: torch.Tensor) -> torch.Tensor:
 
     return torch.stack([variant(g, a) for g in SQ_FLIP_QUATS]
                        + [variant(g, a_sw) for g in SQ_GAUGE_QUATS_SWAP])
+
+
+def quaternion_loss(q_pred: torch.Tensor, q_true: torch.Tensor,
+                    reduce: bool = True) -> torch.Tensor:
+    """θ = 1 − 2·|0.5 − ⟨q̂, q⟩²|, the reference's antipodal-symmetric
+    quaternion distance."""
+    dot = torch.sum(q_true * q_pred, dim=-1)
+    theta = 1.0 - 2.0 * torch.abs(0.5 - dot ** 2)
+    return torch.mean(theta) if reduce else theta
+
+
+def quaternion_loss_sym(q_pred: torch.Tensor, q_true: torch.Tensor,
+                        reduce: bool = True) -> torch.Tensor:
+    """min over the D2 orbit q·f of 1 − ⟨q̂, q·f⟩²: the rotation target is
+    defined only up to the superquadric's 180° principal-axis flips."""
+    dots = torch.sum(_flip_orbit(q_true) * q_pred[None], dim=-1)
+    theta = torch.min(1.0 - dots ** 2, dim=0).values
+    return torch.mean(theta) if reduce else theta
+
+
+def param_gauge_loss(pred: torch.Tensor, labels: torch.Tensor,
+                     reduce: bool = True) -> torch.Tensor:
+    """min over the 8-element D4 gauge orbit of the labels of the
+    size/shape/position MSE plus the antipodal quaternion distance."""
+    orbit = param_gauge_orbit(labels[..., :12])           # (8, ..., 12)
+    block = torch.mean((pred[None, ..., :8] - orbit[..., :8]) ** 2, dim=-1)
+    dots = torch.sum(orbit[..., 8:12] * pred[None, ..., 8:12], dim=-1)
+    per = torch.min(block + (1.0 - dots ** 2), dim=0).values
+    return torch.mean(per) if reduce else per
+
+
+def rotation_moment_loss(q_pred: torch.Tensor, p_true: torch.Tensor,
+                         reduce: bool = True) -> torch.Tensor:
+    """Squared distance of the normalized second-moment orientation
+    matrices R·diag(σ²)·Rᵀ of the predicted and the true rotation, with σ²
+    from the true shape's analytic inertia: invariant under the D2 flips,
+    and blind to rotations the shape cannot show."""
+    q_t = geometry.split_params(p_true).q
+    inert = geometry.inertia(p_true)                        # (..., 3)
+    vs = torch.sum(inert, -1, keepdim=True) / 2.0 - inert    # V·σ² per axis
+    u = vs / torch.sum(vs, -1, keepdim=True)
+
+    def second_moment(q):
+        rot = quat.to_matrix(q)
+        return torch.einsum("...ik,...k,...jk->...ij", rot, u, rot)
+
+    d = second_moment(q_pred) - second_moment(q_t)
+    per = torch.sum(d * d, dim=(-2, -1))
+    return torch.mean(per) if reduce else per
+
+
+def param_mse(pred: torch.Tensor, true: torch.Tensor, reduce: bool = True,
+              col_weight: torch.Tensor | None = None) -> torch.Tensor:
+    """Label-space MSE; ``reduce=False`` gives the per-sample mean over the
+    parameter axis, ``col_weight`` (broadcast to the last axis) re-weights
+    the parameter columns."""
+    sq = (pred - true) ** 2
+    if col_weight is not None:
+        sq = sq * col_weight
+    per = torch.mean(sq, dim=-1)
+    return torch.mean(per) if reduce else per
 
 
 def canonicalize_gauge(p: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,16 @@
-"""The training loop of the port: self-supervised ResNetSQ with the implicit
-loss, on data rendered on the device.
+"""The training loop of the port: ResNetSQ trained self-supervised (the
+implicit loss) or supervised (the explicit loss and the parameter-space
+anchors), on data rendered on the device.
 
-Counterpart of ``sqtpu/training/loop.py`` (:79-105, :246-749) for the
-``implicit`` loss. One train step runs the model in train mode, the loss
-(K1 forward and K2 backward on the card, through ``implicit_loss_auto``),
-the backward and the Adam update; the data are rendered on the device by
-the hard ray-caster (K3). Training data come from a resident uint8
-dataset rendered once (``data="synthetic"``) or are rendered afresh for
-every step (``data="online"``).
+Counterpart of ``sqtpu/training/loop.py`` (:41-243, :246-749) without the
+``leastsquares`` and ``keras_chamfer`` losses (ROADMAP.md Slices D and F).
+One train step runs the model in train mode, the loss (on the card K1/K2
+through ``implicit_loss_auto``, K4 through ``explicit_loss_auto``), the
+backward and the Adam update; a validation step runs the model in eval mode
+under ``torch.no_grad``, so the explicit loss takes K5 there. The data are
+rendered on the device by the hard ray-caster (K3). Training data come
+from a resident uint8 dataset rendered once (``data="synthetic"``) or are
+rendered afresh for every step (``data="online"``).
 
 The random streams are torch generators on the device, one per purpose:
 the resident dataset, each epoch's training batches, and a validation
@@ -18,6 +21,7 @@ other shapes than ``jax.random`` does.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -28,7 +32,9 @@ from sqtpu_torch.data.bmp import write_bmp
 from sqtpu_torch.data.synthetic import make_batch
 from sqtpu_torch.models import build_model, params_vector
 from sqtpu_torch.ops import losses, metrics
-from sqtpu_torch.ops.kernels import implicit_loss_auto, render_hard_auto
+from sqtpu_torch.ops.kernels import (
+    explicit_loss_auto, implicit_loss_auto, render_hard_auto,
+)
 from sqtpu_torch.training.lr import ReduceLROnPlateau, step_schedule_2019
 from sqtpu_torch.training.state import (
     TrainState, create_train_state, get_lr, set_lr,
@@ -51,22 +57,111 @@ def _generator(device: torch.device, seed: int, stream: int,
     return gen
 
 
-def _compute_loss(cfg: TrainConfig, pred, imgs, labels):
-    """The ``implicit`` branch of the JAX package's loss selection; the
-    other losses raise in :func:`check_slice` before training starts."""
-    if cfg.loss != "implicit":
-        raise NotImplementedError(f"loss {cfg.loss!r} is not ported yet "
-                                  "(see ROADMAP.md)")
+def _elong_weights(cfg: TrainConfig, labels):
+    """Per-sample weights 1 + w·(max(a)/min(a) − 1), normalized to mean 1,
+    that emphasize elongated shapes in the supervised terms; None when
+    ``elong_weight`` is off."""
+    if cfg.elong_weight <= 0:
+        return None
+    a = labels[..., 0:3]
+    elong = torch.max(a, dim=-1).values / torch.clamp(
+        torch.min(a, dim=-1).values, min=1e-6)
+    w = 1.0 + cfg.elong_weight * (elong - 1.0)
+    return w / torch.mean(w)
+
+
+def _weighted_mean(cfg: TrainConfig, per, labels):
+    w = _elong_weights(cfg, labels)
+    return torch.mean(per if w is None else per * w)
+
+
+def _explicit_geo(cfg: TrainConfig, pred, labels):
+    """The explicit occupancy-MSE geometry term: through K4/K5 on the card
+    with ``use_pallas`` (gradient with respect to pred only; the labels
+    are constants here), else the plain loss."""
     if cfg.use_pallas:
-        return implicit_loss_auto(imgs[..., 0], pred, cfg.render_size,
-                                  cfg.tau, cfg.sigmoid_sharpness)
-    return losses.implicit_loss(imgs[..., 0], pred, cfg.render_size,
-                                cfg.tau, cfg.sigmoid_sharpness)
+        return explicit_loss_auto(labels[..., :12], pred[..., :12],
+                                  cfg.render_size, sharp=cfg.explicit_sharp)
+    return losses.explicit_loss(labels[..., :12], pred[..., :12],
+                                cfg.render_size, sharp=cfg.explicit_sharp)
+
+
+def _supervised_sym(pred, labels, col_weight=None):
+    """Per-sample block MSE of size, shape and position plus the D2
+    symmetry-aware quaternion loss."""
+    return (losses.param_mse(pred[..., :8], labels[..., :8], reduce=False,
+                             col_weight=col_weight)
+            + losses.quaternion_loss_sym(pred[..., 8:12], labels[..., 8:12],
+                                         reduce=False))
+
+
+def _compute_loss(cfg: TrainConfig, pred, imgs, labels):
+    """The JAX package's loss selection (``training/loop.py:78-243``) for
+    every loss this port runs; ``leastsquares`` and ``keras_chamfer``
+    raise in :func:`check_slice` before training starts."""
+    if cfg.loss == "implicit":
+        if cfg.use_pallas:
+            return implicit_loss_auto(imgs[..., 0], pred, cfg.render_size,
+                                      cfg.tau, cfg.sigmoid_sharpness)
+        return losses.implicit_loss(imgs[..., 0], pred, cfg.render_size,
+                                    cfg.tau, cfg.sigmoid_sharpness)
+    if cfg.loss == "explicit":
+        return _explicit_geo(cfg, pred, labels)
+    if cfg.loss == "param_mse":
+        return losses.param_mse(pred, labels[..., :pred.shape[-1]])
+    if cfg.loss == "supervised":
+        per = (losses.param_mse(pred[..., :8], labels[..., :8], reduce=False)
+               + losses.quaternion_loss(pred[..., 8:12], labels[..., 8:12],
+                                        reduce=False))
+        return _weighted_mean(cfg, per, labels)
+    if cfg.loss == "supervised_sym":
+        return _weighted_mean(cfg, _supervised_sym(pred, labels), labels)
+    if cfg.loss == "quaternion":
+        return losses.quaternion_loss(pred[..., -4:], labels[..., 8:12])
+    if cfg.loss == "quaternion_sym":
+        return losses.quaternion_loss_sym(pred[..., -4:], labels[..., 8:12])
+    if cfg.loss == "supervised_geo":
+        per = (_supervised_sym(pred, labels)
+               + cfg.geo_weight * losses.rotation_moment_loss(
+                   pred[..., 8:12], labels, reduce=False))
+        return _weighted_mean(cfg, per, labels)
+    if cfg.loss == "implicit_sym":
+        impl = _compute_loss(dataclasses.replace(cfg, loss="implicit"), pred,
+                             imgs, labels)
+        sup = _compute_loss(dataclasses.replace(cfg, loss="supervised_sym"),
+                            pred, imgs, labels)
+        return impl + cfg.aux_weight * sup
+    if cfg.loss == "supervised_gauge":
+        per = losses.param_gauge_loss(pred[..., :12], labels, reduce=False)
+        return _weighted_mean(cfg, per, labels)
+    if cfg.loss == "explicit_sym":
+        # the geometry term plus a D2-only anchor: for canonical labels the
+        # orbit minimum handles the unobservable flips and the label pins
+        # the a1 <-> a2 gauge
+        expl = _explicit_geo(cfg, pred, labels)
+        cw = None
+        if cfg.shape_weight != 1.0:
+            cw = pred.new_tensor([1.0, 1.0, 1.0, cfg.shape_weight,
+                                  cfg.shape_weight, 1.0, 1.0, 1.0])
+        return expl + cfg.gauge_weight * _weighted_mean(
+            cfg, _supervised_sym(pred, labels, cw), labels)
+    if cfg.loss == "explicit_gauge":
+        expl = _explicit_geo(cfg, pred, labels)
+        per = losses.param_gauge_loss(pred[..., :12], labels, reduce=False)
+        return expl + cfg.gauge_weight * _weighted_mean(cfg, per, labels)
+    if cfg.loss == "implicit_gauge":
+        impl = _compute_loss(dataclasses.replace(cfg, loss="implicit"), pred,
+                             imgs, labels)
+        per = losses.param_gauge_loss(pred[..., :12], labels, reduce=False)
+        return impl + cfg.aux_weight * _weighted_mean(cfg, per, labels)
+    raise NotImplementedError(f"loss {cfg.loss!r} is not ported yet "
+                              "(see ROADMAP.md)")
 
 
 def make_train_step(state: TrainState, cfg: TrainConfig):
     """The train step: model in train mode -> params vector -> loss ->
-    backward -> (clip) -> Adam. Returns the loss, detached.
+    backward -> (clip) -> Adam. Returns the loss, detached. With
+    ``cfg.remat`` the encoder's activations are recomputed in the backward.
 
     ``nan_policy="skip"`` discards the whole update when the loss is not
     finite: the BatchNorm running statistics the forward already moved are
@@ -82,7 +177,7 @@ def make_train_step(state: TrainState, cfg: TrainConfig):
         if skip_nonfinite:
             saved = [b.detach().clone() for b in model.buffers()]
         state.optimizer.zero_grad(set_to_none=True)
-        pred = params_vector(model(imgs))
+        pred = params_vector(model(imgs, remat=cfg.remat))
         loss = _compute_loss(cfg, pred, imgs, labels)
         if skip_nonfinite and not bool(torch.isfinite(loss)):
             with torch.no_grad():

@@ -25,11 +25,12 @@ class TrainConfig:
     flag, plus ``device``. ``platform`` and ``donate`` mean nothing in
     PyTorch: they are accepted and ignored. ``use_pallas`` keeps its name
     for CLI parity and means "use the hand-written kernels" (K1/K2 for the
-    implicit loss on the card); off, the plain loss runs on any device."""
+    implicit loss, K4/K5 for the explicit loss, on the card); off, the
+    plain loss runs on any device."""
 
     # model / loss
     model: str = "resnet_sq"
-    loss: str = "implicit"            # only "implicit" is ported
+    loss: str = "implicit"            # see PORTED_LOSSES
     aux_weight: float = 0.05
     gauge_weight: float = 1.0
     geo_weight: float = 1.0
@@ -168,14 +169,14 @@ def check_slice(cfg) -> None:
             "not ported yet (see ROADMAP.md): " + "; ".join(later))
 
 
-# The JAX package's losses, and the ROADMAP.md slice that ports each.
+# The losses this port runs (training/loop.py _compute_loss).
+PORTED_LOSSES = (
+    "implicit", "explicit", "explicit_sym", "explicit_gauge", "param_mse",
+    "supervised", "supervised_sym", "supervised_geo", "supervised_gauge",
+    "implicit_sym", "implicit_gauge", "quaternion", "quaternion_sym")
+
+# The JAX package's other losses, and the ROADMAP.md slice that ports each.
 _LOSS_SLICE = {
-    **dict.fromkeys(
-        ("explicit", "explicit_sym", "explicit_gauge", "param_mse",
-         "supervised", "supervised_sym", "supervised_geo",
-         "supervised_gauge", "implicit_sym", "implicit_gauge", "quaternion",
-         "quaternion_sym"),
-        "Slice B (training/loop.py supervised and explicit branches)"),
     "leastsquares": "Slice D (ops/losses.py least_squares_loss)",
     "keras_chamfer": "Slice F (the Keras losses)",
 }
@@ -183,7 +184,7 @@ _LOSS_SLICE = {
 
 def _train_options_later(cfg: "TrainConfig") -> list:
     later = []
-    if cfg.loss != "implicit":
+    if cfg.loss not in PORTED_LOSSES:
         later.append(f"loss={cfg.loss!r}: "
                      + _LOSS_SLICE.get(cfg.loss, "no such loss"))
     for name in ("augment_gaussian", "augment_dropout", "augment_salt",
@@ -198,8 +199,6 @@ def _train_options_later(cfg: "TrainConfig") -> list:
         later.append("n_grid > 1: Slice E (grid-sharded loss, kernel K6)")
     if cfg.dtype != "float32":
         later.append(f"dtype={cfg.dtype!r}: Slice F")
-    if cfg.remat:
-        later.append("remat: Slice F")
     if cfg.profile_dir:
         later.append("profile_dir: Slice F (utils/profiling.py)")
     if cfg.data not in ("synthetic", "online"):

@@ -177,6 +177,7 @@ def test_port_imports_neither_jax_nor_sqtpu():
         "assert 'sqtpu_torch.serve' in sys.modules\n"
         "assert 'sqtpu_torch.train' in sys.modules\n"
         "assert 'sqtpu_torch.training.loop' in sys.modules\n"
+        "assert 'sqtpu_torch.ops.kernels.explicit' in sys.modules\n"
         "print('clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -1,14 +1,19 @@
-"""The CUDA kernels K1/K2 of the implicit loss on the card.
+"""The port's CUDA kernels on the card: K3 (the hard renderer), K1/K2 (the
+implicit loss) and K4/K5 (the explicit loss).
 
 Every test here launches a kernel and skips without an NVIDIA GPU. The
 file imports neither JAX nor the JAX package, so it runs on a card's host
-that has only torch:
+that has only torch (the suite's conftest imports JAX, hence
+``--noconftest``):
 
-    python -m pytest -m gpu tests/test_torch_port_gpu.py
+    python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 
-K1/K2 are held against the torch emulation of their algorithm and against
-the plain loss (autograd) with the tolerances of
-tests/test_torch_port_implicit.py, and must be identical run to run.
+K3 is held against its plain version with the renderer's bound: fewer than
+0.1% of pixels off by more than one gray level. K1/K2 are held against the
+torch emulation of their algorithm and against the plain loss (autograd)
+with the tolerances of tests/test_torch_port_implicit.py, K4/K5 with those
+of tests/test_torch_port_explicit.py; every kernel must be identical run
+to run.
 """
 
 import numpy as np
@@ -16,8 +21,13 @@ import pytest
 import torch
 
 from sqtpu_torch.ops import losses as tlosses
+from sqtpu_torch.ops import render as trender
+from sqtpu_torch.ops.kernels import explicit as KE
+from sqtpu_torch.ops.kernels import hardrender
 from sqtpu_torch.ops.kernels import implicit as K
-from sqtpu_torch.ops.kernels import implicit_loss_auto
+from sqtpu_torch.ops.kernels import (
+    explicit_loss_auto, implicit_loss_auto, render_hard_auto,
+)
 
 
 @pytest.fixture
@@ -34,18 +44,66 @@ def grad_atol(g: np.ndarray) -> float:
     return max(1e-6, 1e-4 * float(np.abs(g).max()))
 
 
+def _params(rng: np.random.Generator, b: int) -> np.ndarray:
+    """(B, 12) float32 params of the reference eval distribution."""
+    q = rng.normal(size=(b, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    return np.concatenate([rng.uniform(25 / 255, 75 / 255, (b, 3)),
+                           rng.uniform(0.1, 1.0, (b, 2)),
+                           (128.0 + rng.uniform(-40, 40, (b, 3))) / 255.0,
+                           q], axis=-1).astype(np.float32)
+
+
 def _batch(seed: int, b: int = 2):
     """(B, 12) params of the reference eval distribution and (B, 48, 48)
     noise images, numpy-made."""
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(b, 4))
-    q /= np.linalg.norm(q, axis=-1, keepdims=True)
-    p = np.concatenate([rng.uniform(25 / 255, 75 / 255, (b, 3)),
-                        rng.uniform(0.1, 1.0, (b, 2)),
-                        (128.0 + rng.uniform(-40, 40, (b, 3))) / 255.0, q],
-                       axis=-1)
+    p = _params(rng, b)
     img = rng.uniform(0.05, 0.9, (b, 48, 48))
-    return p.astype(np.float32), img.astype(np.float32)
+    return p, img.astype(np.float32)
+
+
+def levels_off(a: np.ndarray, b: np.ndarray) -> float:
+    """Fraction of pixels whose gray levels differ by more than one."""
+    return float((np.abs(np.rint(a * 255) - np.rint(b * 255)) > 1).mean())
+
+
+# ---- K3, the hard renderer ---------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_sweep,n_bisect", [(64, 16), (48, 12)])
+def test_kernel_matches_plain_on_card(cuda_device, n_sweep, n_bisect):
+    p = torch.from_numpy(_params(np.random.default_rng(23), 16)).to(
+        cuda_device)
+    before = hardrender.launches
+    got = render_hard_auto(p, 256, n_sweep=n_sweep, n_bisect=n_bisect)
+    torch.cuda.synchronize()
+    assert hardrender.launches == before + 1
+    want = trender.render_depth_hard_batch(p, 256, n_bisect=n_bisect,
+                                           quantize=True, n_sweep=n_sweep)
+    assert got.shape == (16, 256, 256) and got.dtype == torch.float32
+    assert levels_off(got.cpu().numpy(), want.cpu().numpy()) < 1e-3
+    assert float(got.max()) > 0.3
+
+
+@pytest.mark.gpu
+def test_kernel_unquantized_on_card(cuda_device):
+    p = torch.from_numpy(_params(np.random.default_rng(24), 4)).to(
+        cuda_device)
+    img = hardrender.render_depth_hard_cuda(p, 64, 48, 12, quantize=False)
+    img = img.cpu().numpy()
+    assert img.min() >= 0 and img.max() <= 1
+    assert ((img * 255) % 1 > 1e-3).any()
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_empty_batch_on_card(cuda_device):
+    with pytest.raises(ValueError):
+        hardrender.render_depth_hard_cuda(
+            torch.zeros((0, 12), device=cuda_device))
+
+
+# ---- K1/K2, the implicit loss --------------------------------------------
 
 
 def _torch_value_and_grads(fn, p, img, n, z_window, device="cpu"):
@@ -118,3 +176,91 @@ def test_refused_launch_raises(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         K.cuda_fwd(img_xy, par, 16, 16, 1.5, 260.0)
     assert K.fwd_launches == 0
+
+
+# ---- K4/K5, the explicit loss ----------------------------------------------
+
+def _explicit_batch(seed: int, b: int):
+    rng = np.random.default_rng(seed)
+    true = _params(rng, b)
+    return true, (true + 0.02 * rng.normal(size=true.shape)).astype(
+        np.float32)
+
+
+def _explicit_value_and_grad(fn, true, pred, n, device, **kw):
+    tp = torch.tensor(pred, device=device, requires_grad=True)
+    loss = fn(torch.tensor(true, device=device), tp, n, **kw)
+    loss.backward()
+    return loss.item(), tp.grad.cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("z_window", [True, False])
+def test_explicit_kernels_match_emulation_and_plain_on_card(cuda_device,
+                                                            z_window):
+    true, pred = _explicit_batch(80, 8)
+    kw = {"z_window": z_window, "sharp": 20.0}
+    KE.reset_launches()
+    got = _explicit_value_and_grad(KE.explicit_loss_cuda, true, pred, 64,
+                                   cuda_device, **kw)
+    assert (KE.fused_launches, KE.fwd_launches) == (1, 0)
+    again = _explicit_value_and_grad(KE.explicit_loss_cuda, true, pred, 64,
+                                     cuda_device, **kw)
+    for a, b in zip(got, again):  # no atomics: identical run to run
+        np.testing.assert_array_equal(a, b)
+    with torch.no_grad():  # K5: the loss alone, the same sum
+        only = KE.explicit_loss_cuda(torch.tensor(true, device=cuda_device),
+                                     torch.tensor(pred, device=cuda_device),
+                                     64, **kw).item()
+    assert (KE.fused_launches, KE.fwd_launches) == (2, 1)
+    assert only == pytest.approx(got[0], rel=1e-6)
+    emu = _explicit_value_and_grad(KE.explicit_loss_emulated, true, pred,
+                                   64, cuda_device, **kw)
+    assert got[0] == pytest.approx(emu[0], rel=1e-5)
+    np.testing.assert_allclose(got[1], emu[1], rtol=5e-3, atol=1e-6)
+    plain = _explicit_value_and_grad(
+        lambda t, p, n, **_: tlosses.explicit_loss(t, p, n, sharp=20.0),
+        true, pred, 64, cuda_device)
+    rel, atol = (1e-3, 5e-4) if z_window else (1e-5, 1e-6)
+    assert got[0] == pytest.approx(plain[0], rel=rel)
+    np.testing.assert_allclose(got[1], plain[1], rtol=5e-3, atol=atol)
+
+
+@pytest.mark.gpu
+def test_explicit_dispatch_on_card(cuda_device):
+    true, pred = (torch.tensor(x, device=cuda_device)
+                  for x in _explicit_batch(81, 4))
+    KE.reset_launches()
+    with torch.no_grad():
+        explicit_loss_auto(true, pred, 32)
+    explicit_loss_auto(true, pred, 32)  # pred needs no gradient: K5 too
+    assert (KE.fused_launches, KE.fwd_launches) == (0, 2)
+    with pytest.raises(TypeError):
+        explicit_loss_auto(true.double(), pred.double(), 32)
+    with pytest.raises(ValueError):
+        explicit_loss_auto(true.cpu(), pred, 32)
+
+
+@pytest.mark.gpu
+def test_explicit_refused_launch_raises(cuda_device, monkeypatch):
+    """A launcher that reports a CUDA error (here a stand-in returning
+    cudaErrorInvalidConfiguration) makes the wrapper raise and count
+    nothing."""
+    lib = KE._lib()
+
+    class Refusing:
+        sqtpu_explicit_blocks = lib.sqtpu_explicit_blocks
+        sqtpu_error_string = lib.sqtpu_error_string
+
+        @staticmethod
+        def sqtpu_explicit_fused(*args):
+            return 9
+
+    monkeypatch.setattr(KE, "_lib", lambda: Refusing)
+    true, pred = (torch.tensor(x, device=cuda_device)
+                  for x in _explicit_batch(82, 2))
+    par_t, par_p = KE.pack_params(true, pred, 16)
+    KE.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        KE.cuda_fused(par_t, par_p, 16, 5.0)
+    assert KE.fused_launches == 0

@@ -3,9 +3,8 @@
 On the CPU the wrapper takes the plain version; the tests here hold its
 checks, its packing of the frame scalars (against the JAX wrapper's
 packing, fp32 rtol 1e-6: the same arithmetic in the same type), and the
-build helper. The tests marked ``gpu`` launch the CUDA kernel and skip
-without a card; there the bound is the renderer's own, fewer than 0.1% of
-pixels off by more than one gray level against the plain version.
+build helper. The kernel itself is tested on the card by
+tests/test_torch_port_gpu.py, which imports no JAX.
 """
 
 import os
@@ -20,16 +19,7 @@ from sqtpu.ops import quaternion as jquat
 from sqtpu_torch.ops import render as trender
 from sqtpu_torch.ops.kernels import _build, hardrender, render_hard_auto
 
-from test_torch_port_ops import (  # noqa: F401
-    _few_torch_threads, levels_off, random_params,
-)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")
+from test_torch_port_ops import _few_torch_threads, random_params  # noqa: F401
 
 
 def test_cpu_tensor_goes_to_plain_version():
@@ -111,36 +101,3 @@ def test_source_is_plain_c_for_sm90a():
     assert "sqtpu/ops/kernels/hardrender.py::_kernel" in src
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
-
-
-# ---- on the card -----------------------------------------------------
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("n_sweep,n_bisect", [(64, 16), (48, 12)])
-def test_kernel_matches_plain_on_card(cuda_device, n_sweep, n_bisect):
-    p = torch.from_numpy(random_params(23, 16, np.float32)).to(cuda_device)
-    before = hardrender.launches
-    got = render_hard_auto(p, 256, n_sweep=n_sweep, n_bisect=n_bisect)
-    torch.cuda.synchronize()
-    assert hardrender.launches == before + 1
-    want = trender.render_depth_hard_batch(p, 256, n_bisect=n_bisect,
-                                           quantize=True, n_sweep=n_sweep)
-    assert got.shape == (16, 256, 256) and got.dtype == torch.float32
-    assert levels_off(got.cpu().numpy(), want.cpu().numpy()) < 1e-3
-    assert float(got.max()) > 0.3
-
-
-@pytest.mark.gpu
-def test_kernel_unquantized_on_card(cuda_device):
-    p = torch.from_numpy(random_params(24, 4, np.float32)).to(cuda_device)
-    img = hardrender.render_depth_hard_cuda(p, 64, 48, 12, quantize=False)
-    img = img.cpu().numpy()
-    assert img.min() >= 0 and img.max() <= 1
-    assert ((img * 255) % 1 > 1e-3).any()
-
-
-@pytest.mark.gpu
-def test_kernel_rejects_empty_batch_on_card(cuda_device):
-    with pytest.raises(ValueError):
-        hardrender.render_depth_hard_cuda(
-            torch.zeros((0, 12), device=cuda_device))

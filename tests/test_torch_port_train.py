@@ -232,21 +232,34 @@ def test_train_config_has_the_jax_fields_and_flags():
 
 
 @pytest.mark.parametrize("option,slice_", [
-    ({"loss": "explicit"}, "Slice B"), ({"loss": "supervised_sym"}, "Slice B"),
     ({"loss": "leastsquares"}, "Slice D"),
     ({"loss": "keras_chamfer"}, "Slice F"),
     ({"augment_gaussian": 0.01}, "Slice C2"),
+    ({"augment_dropout": 0.1}, "Slice C2"),
+    ({"augment_salt": 0.01}, "Slice C2"),
     ({"augment_randomize": True}, "Slice C2"),
     ({"pretrained": "r18.pt"}, "Slice F"),
     ({"init_base": "base.npz"}, "Slice D"), ({"freeze_base": True}, "Slice D"),
-    ({"n_grid": 2}, "Slice E"), ({"dtype": "bfloat16"}, "Slice F"),
-    ({"remat": True}, "Slice F"), ({"profile_dir": "prof"}, "Slice F"),
+    ({"n_grid": 2}, "Slice E"), ({"n_grid": 4}, "Slice E"),
+    ({"dtype": "bfloat16"}, "Slice F"), ({"profile_dir": "prof"}, "Slice F"),
     ({"data": "/data/bmps"}, "Slice C2"), ({"iso": True}, "Slice F"),
     ({"model": "refine_sq"}, "Slice D")])
 def test_options_outside_the_slice_raise(option, slice_, tmp_path):
     cfg = TrainConfig(ckpt_dir=str(tmp_path), **{**SMALL, **option})
     with pytest.raises(NotImplementedError, match=slice_):
         train(cfg)
+
+
+@pytest.mark.parametrize("option", [
+    {"loss": "explicit"}, {"loss": "supervised_sym"}, {"remat": True}])
+def test_options_of_the_supervised_slice_run(option, tmp_path):
+    """Options the slice gate refused until the supervised slice: one
+    step on the CPU each."""
+    cfg = TrainConfig(max_epochs=1, steps_per_epoch=1, val_steps=1,
+                      compare_images=0, ckpt_dir=str(tmp_path),
+                      **{**SMALL, **option})
+    _, hist = train(cfg)
+    assert np.isfinite(hist["loss"][0]) and np.isfinite(hist["val_loss"][0])
 
 
 def test_nan_guard_and_metric_logger(tmp_path, capsys):
