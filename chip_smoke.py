@@ -27,7 +27,15 @@ user calls:
   shape, one ``explicit_sym`` step with ``remat`` on the card against the
   CPU's, the c4 artifact's validation loss against the JAX package's, and
   ``python -m sqtpu_torch.train`` with the c4c recipe (twice), with the
-  launch counts of K3, K4 and K5 and the step's per-stage time.
+  launch counts of K3, K4 and K5 and the step's per-stage time;
+* training over two ranks that share the card (phases 15-17): K6 (K1/K2
+  on a column slab) against K1/K2 on the whole plane and against its
+  emulation; one step of the 'grid' 1x2 (ssl1, K6), 'data' 2x1 (ssl1,
+  K1/K2) and 'data' 2x1 (c4c, K4) layouts against one rank, and the
+  dryrun's gates (``sqtpu_torch.parallel.dryrun``); ``python -m
+  torch.distributed.run --nproc_per_node 2 -m sqtpu_torch.train`` with
+  the ssl1 recipe and ``--n-grid 2``, resumed once, with each rank's
+  launch counts.
 
 One flushed progress line per phase, with the elapsed seconds; no failure
 is caught. The last lines are one JSON object with the train steps'
@@ -43,6 +51,7 @@ from __future__ import annotations
 
 import faulthandler
 import json
+import math
 import os
 import subprocess
 import sys
@@ -200,7 +209,7 @@ C4C_RECIPE = ("--model", "resnet_sq", "--loss", "explicit_sym",
               "--val-steps", str(TRAINER_VAL_STEPS))
 C4C_B = 256
 C4C_SPLIT = ("render (K3)", "forward", "loss (K4 + anchor)",
-             "backward (incl. recompute)", "optimizer")
+             "backward (incl. recompute)", "gradient all-reduce", "optimizer")
 
 T0 = time.perf_counter()
 
@@ -920,56 +929,82 @@ def phase_explicit_validation(truths, dev) -> None:
         raise RuntimeError(f"validation IoU {float(acc)} of trained weights")
 
 
-def step_split(dev, cfg, names, init_weights: str = "") -> dict:
+def step_split(dev, cfg, names, init_weights: str = "", layout=None) -> dict:
     """Device time of each stage of ``cfg``'s train step at its batch,
     online data: the same calls as ``make_train_step``, with CUDA events
     between them; median of 5 steps after one warm-up. ``names`` label
-    the five stages (render, forward, loss, backward, optimizer)."""
+    the six stages (render, forward, loss, backward, gradient all-reduce,
+    optimizer with the buffers' broadcast). Over several ranks
+    (``layout``) each step renders this rank's rows of the global batch,
+    with the BatchNorm statistics of its data group and the collectives
+    of ``make_train_step``; one rank runs none."""
     import torch
 
     from sqtpu_torch.data.synthetic import make_batch
     from sqtpu_torch.models import build_model, params_vector
+    from sqtpu_torch.models.resnet import use_global_batch_stats
+    from sqtpu_torch.parallel.mesh import (
+        Layout, average_gradients, broadcast_state,
+    )
     from sqtpu_torch.training.loop import _compute_loss
     from sqtpu_torch.training.state import create_train_state
     from sqtpu_torch.utils.checkpoint import load_weights_npz
 
+    layout = layout or Layout(device=dev)
     model = build_model("resnet_sq")
     if init_weights:
         load_weights_npz(init_weights, model)
+    use_global_batch_stats(model, layout.data_group)
     state = create_train_state(model.to(dev), cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
+    rows = layout.rows(cfg.batch_size)
     times = {k: [] for k in names}
     for i in range(6):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
         ev[0].record()
-        imgs, labels = make_batch(gen, cfg.batch_size, IMAGE, "hard")
+        imgs, labels = make_batch(gen, cfg.batch_size, IMAGE, "hard",
+                                  rows=rows)
         ev[1].record()
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         pred = params_vector(model(imgs, remat=cfg.remat))
         ev[2].record()
-        loss = _compute_loss(cfg, pred, imgs, labels)
+        loss = _compute_loss(cfg, pred, imgs, labels, layout)
         ev[3].record()
         loss.backward()
         ev[4].record()
-        state.apply_gradients()
+        average_gradients(model.parameters(), layout)
         ev[5].record()
+        state.apply_gradients()
+        broadcast_state(model.buffers(), layout)
+        ev[6].record()
         torch.cuda.synchronize()
         if i:
             for k, name in enumerate(names):
                 times[name].append(ev[k].elapsed_time(ev[k + 1]))
     split = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
     total = sum(split.values())
-    progress(f"step split {cfg.loss} B={cfg.batch_size} (median of 5, ms): "
-             + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+    who = f"rank {layout.rank} of {layout.world}, " if layout.world > 1 else ""
+    progress(f"step split {who}{cfg.loss} B={cfg.batch_size} (median of 5, "
+             "ms): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
              + f"; sum {total:.3f} ms = {cfg.batch_size / total * 1e3:.1f} "
              "imgs/s")
     return {"ms": split, "sum_ms": total}
 
 
+def split_job(layout, spec: dict) -> dict:
+    """A spawned rank's job (``sqtpu_torch.parallel.dryrun.spawn``): the
+    step split of ``spec["cfg"]`` from ``spec["weights"]`` over its
+    layout."""
+    return step_split(layout.device, spec["cfg"], RANK_SPLIT,
+                      spec["weights"], layout)
+
+
 SSL1_SPLIT = ("render (K3)", "forward", "loss (K1)", "backward (incl. K2)",
-              "optimizer")
+              "gradient all-reduce", "optimizer")
+RANK_SPLIT = ("render (K3)", "forward", "loss", "backward",
+              "gradient all-reduce", "optimizer + buffer broadcast")
 
 
 def phase_step_split(dev) -> dict:
@@ -1006,27 +1041,22 @@ def _train_cli(ckpt_dir: str, *flags: str):
     return entry.main([*flags, "--device", "cuda", "--ckpt-dir", ckpt_dir])
 
 
-KERNEL_COUNTS = ("K3", "K1", "K2", "K4", "K5")
+KERNEL_COUNTS = ("K3", "K1", "K2", "K4", "K5", "K6", "K6_bwd")
 
 
 def counts() -> tuple:
-    """Launches of K3, K1, K2, K4 and K5 since their last reset."""
-    from sqtpu_torch.ops.kernels import explicit as KE
-    from sqtpu_torch.ops.kernels import hardrender
-    from sqtpu_torch.ops.kernels import implicit as K
+    """Launches of K3, K1, K2, K4, K5 and K6 (forward, backward) since
+    their last reset."""
+    from sqtpu_torch.ops.kernels import launch_counts
 
-    return (hardrender.launches, K.fwd_launches, K.bwd_launches,
-            KE.fused_launches, KE.fwd_launches)
+    got = launch_counts()
+    return tuple(got[k] for k in KERNEL_COUNTS)
 
 
 def reset_counts() -> None:
-    from sqtpu_torch.ops.kernels import explicit as KE
-    from sqtpu_torch.ops.kernels import hardrender
-    from sqtpu_torch.ops.kernels import implicit as K
+    from sqtpu_torch.ops.kernels import reset_launches
 
-    hardrender.reset_launches()
-    K.reset_launches()
-    KE.reset_launches()
+    reset_launches()
 
 
 def check_run(what: str, hist: dict, epochs: int, want: tuple, ckpt_dir: str,
@@ -1094,7 +1124,7 @@ def phase_trainer(dev, card: str) -> dict:
     try:
         steps, val = TRAINER_STEPS, TRAINER_VAL_STEPS
         per_epoch = steps + val
-        want = (2 * per_epoch, 2 * per_epoch, 2 * steps, 0, 0)
+        want = (2 * per_epoch, 2 * per_epoch, 2 * steps, 0, 0, 0, 0)
         reset_counts()
         state, hist = _train_cli(ssl_dir, *SSL1_RECIPE, "--max-epochs", "2")
         out["ssl1"] = check_run("trainer, ssl1 recipe, 2 epochs", hist, 2,
@@ -1116,7 +1146,7 @@ def phase_trainer(dev, card: str) -> dict:
                                  "--continue-training", "--resume-from",
                                  "last")
         check_run("trainer, ssl1 recipe, resumed for epoch 2", hist, 3,
-                  (per_epoch, per_epoch, steps, 0, 0), ssl_dir, card)
+                  (per_epoch, per_epoch, steps, 0, 0, 0, 0), ssl_dir, card)
         reset_counts()
         state, hist = _train_cli(
             default_dir, "--batch-size", "32", "--max-epochs", "2",
@@ -1125,7 +1155,7 @@ def phase_trainer(dev, card: str) -> dict:
         # compare images are one K3 launch each
         out["default"] = check_run("trainer, default config (synthetic)",
                                    hist, 2, (2, 2 * per_epoch, 2 * steps,
-                                             0, 0), default_dir, card)
+                                             0, 0, 0, 0), default_dir, card)
     finally:
         for d in (ssl_dir, again_dir, default_dir):
             shutil.rmtree(d, ignore_errors=True)
@@ -1144,7 +1174,7 @@ def phase_c4c_trainer(dev, card: str) -> dict:
     from sqtpu_torch.utils.config import TrainConfig
 
     steps, val = TRAINER_STEPS, TRAINER_VAL_STEPS
-    want = (2 * (steps + val), 0, 0, 2 * steps, 2 * val)
+    want = (2 * (steps + val), 0, 0, 2 * steps, 2 * val, 0, 0)
     dirs = [tempfile.mkdtemp(prefix=f"sqtpu_torch_c4c{i}_") for i in (0, 1)]
     out = {}
     try:
@@ -1168,6 +1198,346 @@ def phase_c4c_trainer(dev, card: str) -> dict:
     cfg = TrainConfig(batch_size=C4C_B, remat=True, learning_rate=5e-6,
                       **C4C_LOSS)
     out["split"] = step_split(dev, cfg, C4C_SPLIT, WEIGHTS)
+    return out
+
+
+# K6, K1/K2 launched on a slab of image columns (the grid-sharded loss):
+# the ssl1 shape, slabs of 32 columns (the 'grid' 1x2 layout) and 16 (1x4)
+# at every x0. The slabs' sums and gradients add up to K1/K2's on the whole
+# plane, and each slab equals the emulation's slab and the plain slab
+# render's (full sweep), with phase 7's tolerances (the cotangent of each
+# sample's sum is the loss's, 1/(B n²)); a slab's sum is held relative to
+# the sample's whole-plane sum, the loss's scale (measured: a 16-column
+# slab at the image's edge 3.2e-5 apart from the emulation in absolute
+# terms, one sample of 512).
+SLAB_COLS = (32, 16)
+# Two ranks on the one card (gloo: NCCL refuses two ranks on one device),
+# each layout's step against one rank on the same weights and batch: the
+# JAX package's gates (__graft_entry__.py:196-210), loss 1e-5 relative and
+# gradient norm 1e-3 relative; the BatchNorm statistics after the step
+# rtol 1e-4 (phase 8's bound for cuDNN's sums in another order).
+RANKS = 2
+PARITY_STATS_RTOL = 1e-4
+LAUNCH_TIMEOUT_S = 420
+
+
+def phase_slab(dev) -> dict:
+    """K6 against K1/K2 on the whole plane, and against the emulation of
+    its slab and the plain slab render, at the ssl1 shape on K3 images and
+    noise images, windowed and full sweep, for every slab of SLAB_COLS
+    columns; twice, bit for bit; then K6's time and bound on the first
+    slab of 32 columns."""
+    import torch
+
+    from sqtpu_torch.data.synthetic import sample_params
+    from sqtpu_torch.ops.image import nearest_resize
+    from sqtpu_torch.ops.kernels import implicit as K
+    from sqtpu_torch.ops.kernels import render_hard_auto
+
+    n = LOSS_N
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    truths = sample_params(LOSS_B, gen)
+    k3_imgs = render_hard_auto(truths, IMAGE, n_sweep=TRAIN_SWEEP,
+                               n_bisect=TRAIN_BISECT, quantize=True)
+    pred = truths + 0.02 * torch.randn((LOSS_B, 12), generator=gen,
+                                       device=dev)
+    pred = torch.cat([pred[:, :8], torch.nn.functional.normalize(
+        pred[:, 8:], dim=-1)], dim=-1)
+    noise_imgs = 0.05 + 0.85 * torch.rand((LOSS_B, IMAGE, IMAGE),
+                                          generator=gen, device=dev)
+    g = torch.full((LOSS_B,), 1.0 / (LOSS_B * n * n), device=dev)
+
+    def run(fn, small):
+        """Per-sample sums of fn(slab, params) and the gradients of
+        Σ g·sums."""
+        p = pred.clone().requires_grad_(True)
+        sl = small.clone().requires_grad_(True)
+        sums = fn(sl, p)
+        torch.sum(sums * g).backward()
+        torch.cuda.synchronize()
+        return sums.detach(), p.grad, sl.grad
+
+    worst = {"value": 0.0, "grad": 0.0, "img_grad": 0.0}
+    plain = {}  # the plain slab's result by (images, columns, x0)
+    for z_window in (True, False):
+        for img_name, imgs in (("K3 images", k3_imgs),
+                               ("noise images", noise_imgs)):
+            small = nearest_resize(imgs, (n, n))
+            full = run(lambda sl, p: K._ImplicitCore.apply(
+                K.slab_plane(sl), K.pack_params(p, n, z_window), n, n, TAU,
+                SHARP, K.CUDA), small)
+            for cols in SLAB_COLS:
+                parts = []
+                for x0 in range(0, n, cols):
+                    sl = small[:, :, x0:x0 + cols].contiguous()
+
+                    def slab(s_, p, fn=K.implicit_sums_slab_cuda, x0=x0):
+                        return fn(s_, p, x0, n, TAU, SHARP,
+                                  z_window=z_window)
+
+                    got, again = run(slab, sl), run(slab, sl)
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise RuntimeError(
+                            f"K6 is not bit-identical run to run ({cols} "
+                            f"columns from {x0}, z_window={z_window}, "
+                            f"{img_name})")
+                    key = (img_name, cols, x0)
+                    if key not in plain:  # full sweep: no z window
+                        plain[key] = run(
+                            lambda s_, p, x0=x0: K.implicit_sums_slab_plain(
+                                s_, p, x0, n, TAU, SHARP), sl)
+                    for ref_name, ref in (
+                            ("its emulation", run(lambda s_, p: slab(
+                                s_, p, K.implicit_sums_slab_emulated), sl)),
+                            ("its plain version", plain[key])):
+                        what = (f"K6 vs {ref_name}, {cols} columns from "
+                                f"{x0}, z_window={z_window}, {img_name}")
+                        # relative to the sample's whole-plane sum (its
+                        # loss): a slab of background has a small sum of
+                        # near-cancelling terms 1 - Tacc/n
+                        rel = float(((got[0] - ref[0]).abs()
+                                     / full[0].abs()).max())
+                        if not rel <= VALUE_RTOL:
+                            raise RuntimeError(f"{what}: sums {rel:.2e} of "
+                                               "the samples' plane sums apart")
+                        worst["value"] = max(worst["value"], rel)
+                        worst["grad"] = max(worst["grad"], check_close(
+                            what + ", param gradient", got[1], ref[1],
+                            GRAD_RTOL, GRAD_ATOL))
+                        if img_name == "noise images":
+                            worst["img_grad"] = max(
+                                worst["img_grad"], check_close(
+                                    what + ", image gradient", got[2],
+                                    ref[2], IMG_GRAD_RTOL, 0.0))
+                    parts.append(got)
+                what = (f"K6's {n // cols} slabs of {cols} columns vs K1/K2, "
+                        f"z_window={z_window}, {img_name}")
+                check_close(what + ", sums", sum(p[0] for p in parts),
+                            full[0], VALUE_RTOL, 0.0)
+                check_close(what + ", param gradient",
+                            sum(p[1] for p in parts), full[1], GRAD_RTOL,
+                            GRAD_ATOL)
+                if img_name == "noise images":
+                    check_close(what + ", image gradient",
+                                torch.cat([p[2] for p in parts], -1),
+                                full[2], IMG_GRAD_RTOL, 0.0)
+            progress(f"K6 z_window={z_window}, {img_name}: slabs of "
+                     f"{SLAB_COLS} columns add up to K1/K2 and equal the "
+                     "emulation and the plain slab, bit-identical twice")
+
+    # times at the main path's setting: the first slab of 32 columns,
+    # windowed, K3 images (rank 0's share of the 'grid' 1x2 layout)
+    cols = SLAB_COLS[0]
+    small = nearest_resize(k3_imgs, (n, n))
+    sl = small[:, :, :cols].contiguous()
+    img_xy = K.slab_plane(sl)
+    par = K.pack_params(pred, n, x0=0)
+    sums, tacc = K.cuda_slab_fwd(img_xy, par, n, cols, TAU, SHARP)
+    fwd_ms = cuda_ms(lambda: K.cuda_slab_fwd(img_xy, par, n, cols, TAU,
+                                             SHARP))
+    bwd_ms = cuda_ms(lambda: K.cuda_slab_bwd(img_xy, par, tacc, g, n, cols,
+                                             TAU, SHARP))
+
+    def plain_fwd_bwd():
+        p = pred.clone().requires_grad_(True)
+        torch.sum(K.implicit_sums_slab_plain(sl, p, 0, n, TAU, SHARP)
+                  * g).backward()
+
+    plain_ms = cuda_ms(plain_fwd_bwd)
+    points = K.window_points(par, n, cols)
+    plane_bytes = LOSS_B * n * cols * 4
+    par_bytes = LOSS_B * K.PAR_STRIDE * 4
+    ops_ms = points * (OPS_K1 + OPS_K2) / PEAK_FP32_OPS * 1e3
+    # K1: params and slab in, Tacc and sums out; K2: params, g, slab and
+    # Tacc in, the cotangent and the params' gradient out
+    n_bytes = (par_bytes + 2 * plane_bytes + LOSS_B * 4
+               + 2 * par_bytes + LOSS_B * 4 + 3 * plane_bytes)
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    bound = max(ops_ms, bytes_ms)
+    progress(f"K6 B={LOSS_B} N={n}, {cols} columns from 0: forward "
+             f"{fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms, bound "
+             f"{bound:.4f} ms ({points} in-window points, "
+             f"{OPS_K1 + OPS_K2} ops each); plain slab fwd+bwd "
+             f"{plain_ms:.3f} ms; worst rel sum {worst['value']:.2e}, worst "
+             f"|grad err| {worst['grad']:.2e}, worst |img grad err| "
+             f"{worst['img_grad']:.2e}")
+    return {"ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None, "in_window_points": points,
+            "max_abs_err": worst["grad"],
+            "max_rel_err_value": worst["value"],
+            "max_abs_err_image_grad": worst["img_grad"]}
+
+
+def phase_two_ranks(dev) -> dict:
+    """Two ranks spawned on the one card, one train step of each layout
+    at full width against one rank (this process) on the same weights and
+    batch: 'grid' 1x2 (ssl1, K6), 'data' 2x1 (ssl1, K1/K2), 'data' 2x1
+    (c4c with remat, K4); each rank's launches, the ranks' models equal
+    after the step, each rank's step split and peak memory; then the
+    dryrun's gates at its small size."""
+    import torch
+
+    from sqtpu_torch.parallel import dryrun
+    from sqtpu_torch.parallel.mesh import Layout
+    from sqtpu_torch.utils.config import TrainConfig
+
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True)
+    progress(f"compute mode {mode.stdout.strip()}; {RANKS} ranks on one "
+             "card through gloo")
+    ssl1 = TrainConfig(batch_size=LOSS_B, nan_policy="skip")
+    c4c = TrainConfig(batch_size=C4C_B, remat=True, learning_rate=5e-6,
+                      nan_policy="skip", **C4C_LOSS)
+    layouts = [
+        # name, n_grid, spec, expected launches of one rank, of one
+        ("grid 1x2, ssl1 (K6)", 2,
+         {"cfg": ssl1, "weights": SSL_WEIGHTS},
+         {"K3": 1, "K6": 1, "K6_bwd": 1}, {"K3": 1, "K1": 1, "K2": 1}),
+        ("data 2x1, ssl1 (K1/K2)", 1,
+         {"cfg": ssl1, "weights": SSL_WEIGHTS},
+         {"K3": 1, "K1": 1, "K2": 1}, {"K3": 1, "K1": 1, "K2": 1}),
+        ("data 2x1, c4c with remat (K4)", 1,
+         {"cfg": c4c, "weights": WEIGHTS},
+         {"K3": 1, "K4": 1}, {"K3": 1, "K4": 1}),
+    ]
+    for _, _, spec, _, _ in layouts:
+        spec.update(seed=16)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    # each layout's step, then its step split (a job of its own, after
+    # the step's launches were read)
+    results = dryrun.spawn(RANKS, [(ng, job, spec)
+                                   for _, ng, spec, _, _ in layouts
+                                   for job in (dryrun.step_job, split_job)],
+                           device="cuda")
+    progress(f"{RANKS} ranks ran the three layouts in "
+             f"{time.perf_counter() - t:.1f} s")
+    out = {}
+    for i, (name, _, spec, want, want_one) in enumerate(layouts):
+        ranks = [r[2 * i] for r in results]
+        splits = [r[2 * i + 1]["ms"] for r in results]
+        one = dryrun.step_job(Layout(device=dev), spec)
+        torch.cuda.empty_cache()
+        line = dryrun.check_step_parity(name, ranks, one, PARITY_STATS_RTOL)
+        for who, got, expect in [(f"rank {r['rank']}", r["launches"], want)
+                                 for r in ranks] + [("one rank",
+                                                     one["launches"],
+                                                     want_one)]:
+            counted = {k: v for k, v in got.items() if v}
+            if counted != expect:
+                raise RuntimeError(f"[{name}] {who} launched {counted}, "
+                                   f"expected {expect}")
+        progress(line)
+        for r in ranks:
+            progress(f"  rank {r['rank']}: launches "
+                     f"{ {k: v for k, v in r['launches'].items() if v} }, "
+                     f"step {r['seconds'] * 1e3:.1f} ms, peak memory "
+                     f"{r['max_memory'] / 2**30:.2f} GiB")
+        out[name] = {
+            "loss": ranks[0]["loss"], "one_rank_loss": one["loss"],
+            "grad_norm": ranks[0]["grad_norm"],
+            "one_rank_grad_norm": one["grad_norm"],
+            "one_rank_max_memory_gib": one["max_memory"] / 2**30,
+            "ranks": [{"launches": r["launches"],
+                       "max_memory_gib": r["max_memory"] / 2**30,
+                       "split_ms": split}
+                      for r, split in zip(ranks, splits)]}
+    del results
+    t = time.perf_counter()
+    dryrun.dryrun(RANKS, "cuda", say=progress)
+    progress(f"dryrun gates at {RANKS} ranks on the card in "
+             f"{time.perf_counter() - t:.1f} s")
+    return out
+
+
+def _launch(ckpt_dir: str, *flags: str) -> None:
+    """``python -m torch.distributed.run`` with two ranks on this card,
+    the trainer with ``flags``; its whole process group is killed if it
+    outlives LAUNCH_TIMEOUT_S."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(RANKS), "-m", "sqtpu_torch.train",
+           *flags, "--device", "cuda", "--ckpt-dir", ckpt_dir]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if proc.returncode != 0:
+        raise RuntimeError(f"the launcher exited with {proc.returncode}:\n"
+                           + log[-4000:])
+    for line in log.splitlines():
+        line = line.split("\r")[-1].replace("\x1b[K", "").strip()
+        if "mesh=" in line or line.startswith("Epoch"):
+            progress("  " + line)
+
+
+def phase_launcher(card: str) -> dict:
+    """The trainer through ``torch.distributed.run`` with two ranks on the
+    card, the ssl1 recipe with ``--n-grid 2`` for 2 epochs, then resumed
+    for a third: each rank's launches (read from the run's metrics, every
+    rank's counters start at 0 in its own process), imgs/s per epoch,
+    peak memory per rank, and the checkpoints rank 0 alone writes."""
+    import shutil
+
+    import torch
+
+    torch.cuda.empty_cache()  # the ranks' batches of 512 need the card
+    steps, val = TRAINER_STEPS, TRAINER_VAL_STEPS
+    ckpt_dir = tempfile.mkdtemp(prefix="sqtpu_torch_grid_")
+    out = {}
+    try:
+        flags = (*SSL1_RECIPE, "--n-grid", str(RANKS))
+        for epochs, extra in ((2, ()), (3, ("--continue-training",
+                                             "--resume-from", "last"))):
+            _launch(ckpt_dir, *flags, "--max-epochs", str(epochs), *extra)
+            files = sorted(os.listdir(ckpt_dir))
+            if files != ["best.meta.json", "best.pt", "last.meta.json",
+                         "last.pt", "train_metrics.jsonl"]:
+                raise RuntimeError(f"checkpoint directory holds {files}")
+            with open(os.path.join(ckpt_dir, "train_metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            if [r["epoch"] for r in records] != list(range(epochs)):
+                raise RuntimeError(f"metrics of epochs "
+                                   f"{[r['epoch'] for r in records]}")
+            first = epochs - 1 if extra else 0
+            for r in records[first:]:
+                k = r["epoch"] - first + 1   # epochs since the counters began
+                want = {"K3": k * (steps + val), "K6": k * (steps + val),
+                        "K6_bwd": k * steps}
+                for rank, stats in enumerate(r["ranks"]):
+                    got = {a: b for a, b in stats["launches"].items() if b}
+                    if got != want:
+                        raise RuntimeError(
+                            f"epoch {r['epoch']} rank {rank}: launches {got},"
+                            f" expected {want}")
+                if not all(map(math.isfinite, (r["loss"], r["val_loss"]))):
+                    raise RuntimeError(f"epoch {r['epoch']}: losses {r}")
+            rates = [round(r["imgs_per_sec"], 1) for r in records]
+            memory = [[round(s["max_memory_mb"] / 1024, 2)
+                       for s in r["ranks"]] for r in records]
+            progress(f"trainer through the launcher, ssl1 with --n-grid "
+                     f"{RANKS}, {epochs} epochs: losses "
+                     f"{[round(r['loss'], 6) for r in records]}, val "
+                     f"{[round(r['val_loss'], 6) for r in records]}, imgs/s "
+                     f"per epoch {rates}, peak GiB per rank {memory}, "
+                     f"launches per rank {records[-1]['ranks'][0]['launches']}"
+                     f" on {card}")
+            out["resumed" if extra else "run"] = {
+                "imgs_per_s": rates, "max_memory_gib": memory,
+                "launches": [s["launches"] for s in records[-1]["ranks"]]}
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     return out
 
 
@@ -1248,9 +1618,18 @@ def main() -> int:
              "package's")
     c4c = phase_c4c_trainer(dev, card)
     progress("phase 14 trainer ran the c4c recipe twice")
+    slab_row = phase_slab(dev)
+    progress("phase 15 K6 adds up to K1/K2 and matches its emulation")
+    two_ranks = phase_two_ranks(dev)
+    progress(f"phase 16 {RANKS} ranks on the card match one rank in every "
+             "layout")
+    launcher = phase_launcher(card)
+    progress("phase 17 trainer ran through the launcher with --n-grid "
+             f"{RANKS} and resumed")
 
-    (k3, k1, k2, _, _), _ = trainer["ssl1"]
-    (c4c_k3, _, _, k4, k5), _ = c4c["c4c"]
+    (k3, k1, k2, *_), _ = trainer["ssl1"]
+    (c4c_k3, _, _, k4, k5, *_), _ = c4c["c4c"]
+    k6 = launcher["run"]["launches"][0]
     kernels = [
         {"name": "hardrender", "route": "cuda",
          "source": "sqtpu_torch/csrc/hardrender.cu",
@@ -1275,6 +1654,12 @@ def main() -> int:
          "source": "sqtpu_torch/csrc/explicit.cu",
          "replaces": "sqtpu/ops/kernels/explicit.py:150",
          "launches": k5, **efwd_row},
+        # rank 0's launches in phase 17's 2-epoch run, forward and backward
+        {"name": "implicit_slab", "route": "cuda",
+         "source": "sqtpu_torch/csrc/implicit.cu",
+         "replaces": "sqtpu/ops/kernels/implicit.py:543",
+         "launches": k6["K6"] + k6["K6_bwd"], "launches_fwd": k6["K6"],
+         "launches_bwd": k6["K6_bwd"], **slab_row},
     ]
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"train_step_split_ms": split,
@@ -1285,7 +1670,9 @@ def main() -> int:
                           "c4c": c4c["c4c"][1]},
                       "run_to_run_rel_gap": {
                           "ssl1": trainer["ssl1_run_to_run"],
-                          "c4c": c4c["c4c_run_to_run"]}}), flush=True)
+                          "c4c": c4c["c4c_run_to_run"]},
+                      "two_ranks": two_ranks,
+                      "launcher_ssl1_grid": launcher}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

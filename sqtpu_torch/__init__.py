@@ -7,10 +7,13 @@ C++ under ``csrc/``, built with ``nvcc`` at first use into ``build/``.
 
 Ported so far: closed-loop evaluation (:mod:`sqtpu_torch.evaluate`) and
 serving (:mod:`sqtpu_torch.serve`) of ResNetSQ, with the hard ray-cast
-renderer as the CUDA kernel ``csrc/hardrender.cu``; and self-supervised
-training of ResNetSQ with the implicit loss (:mod:`sqtpu_torch.train`),
-with the loss's forward and backward as the CUDA kernels
-``csrc/implicit.cu``. See ROADMAP.md for the slices still to port.
+renderer as the CUDA kernel ``csrc/hardrender.cu``; training of ResNetSQ
+(:mod:`sqtpu_torch.train`), self-supervised with the implicit loss
+(``csrc/implicit.cu``) and supervised with the explicit loss
+(``csrc/explicit.cu``); and training over several ranks with the JAX
+package's ('data', 'grid') axes (:mod:`sqtpu_torch.parallel`), the grid
+axis through K6, the implicit loss on a column slab. See ROADMAP.md for
+the slices still to port.
 """
 
 __version__ = "0.1.0"

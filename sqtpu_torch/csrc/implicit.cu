@@ -3,7 +3,10 @@
 //
 // K1 replaces sqtpu/ops/kernels/implicit.py::_fwd_kernel and K2 replaces
 // sqtpu/ops/kernels/implicit.py::_bwd_kernel (the Pallas TPU kernels behind
-// implicit_loss_pallas). Same arithmetic as those kernels, point for point:
+// implicit_loss_pallas). K6 replaces implicit_sums_pallas_slab, the
+// grid-sharded loss's slab: the same two kernels launched on n_cols < n
+// image columns from the x offset in slot 19, as the TPU launches its own
+// pallas_call on a slab. Same arithmetic as those kernels, point for point:
 //
 //   body coordinates  u = (R0·(X, Y, z) − t_rot0) / a1   (v, w likewise)
 //   F = ((x2^(1/e2) + y2^(1/e2))^(e2/e1) + z2^(1/e1))^e1, with the 1e-4
@@ -27,8 +30,9 @@
 // R(q*)·t, R(q*), window [j_lo, j_hi], x offset) into shared memory once;
 // each thread sweeps j = j_hi .. j_lo with S, Tacc (K1) or S, V and 17
 // gradient accumulators (K2) in registers. The plane is x_local·n + y with x
-// offset by slot 19 and n_cols columns, so a slab of image columns (the
-// grid-sharded loss) needs only another wrapper. Reductions are
+// offset by slot 19 and n_cols columns, so a slab of image columns (K6)
+// needs only another wrapper; the last block of a plane whose n·n_cols is
+// not a multiple of the block masks its idle threads. Reductions are
 // deterministic: a fixed shuffle tree inside each warp, the warps in order
 // inside the block into a (batch, blocks[, 17]) partial buffer, then a
 // second kernel that sums each sample's partials in block order. No float

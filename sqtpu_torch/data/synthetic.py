@@ -40,17 +40,22 @@ def sample_params(batch: int, generator: torch.Generator,
 
 
 def make_batch(generator: torch.Generator, batch: int, image_size: int = 256,
-               renderer: str = "hard", iso: bool = False):
+               renderer: str = "hard", iso: bool = False,
+               rows: slice | None = None):
     """One (images, labels) batch on the generator's device: images
     (B, S, S, 1) depth maps in [0, 1], labels (B, 12). ``hard`` renders
     with the ray-cast renderer at the training sweep (48 slabs, 12
     bisections, quantized; K3 on the card); ``soft`` with the soft
-    renderer at τ 1.5, sharpness 260."""
+    renderer at τ 1.5, sharpness 260. ``rows`` keeps only those rows of
+    the batch and renders only them: a rank's share of the global batch,
+    drawn from the same stream (each image is rendered on its own)."""
     if iso:
         raise NotImplementedError(
             "iso data is not ported yet: ROADMAP.md Slice F (the 2019 "
             "isometric models)")
     p = sample_params(batch, generator)
+    if rows is not None:
+        p = p[rows]
     if renderer == "hard":
         imgs = render_hard_auto(p, image_size, n_sweep=48, n_bisect=12,
                                 quantize=True)

@@ -45,24 +45,111 @@ class BatchNorm(nn.BatchNorm2d):
     use the unbiased one. Eval mode is torch's own (running statistics).
     ``num_batches_tracked`` is left alone: flax keeps no such counter.
     With ``update_stats`` off (the recompute of a checkpointed stage) the
-    running statistics stay as they are."""
+    running statistics stay as they are.
+
+    With a ``data_group`` (the ranks that hold the other rows of the
+    global batch, :func:`use_global_batch_stats`) the train-mode
+    statistics are the global batch's, as flax's are under a sharded
+    ``jit`` (:class:`_GlobalBatchNorm`), and the running statistics move
+    with the global moments."""
 
     update_stats = True
+    data_group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.data_group is not None:
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                                  self.eps, self.data_group)
+            if self.update_stats:
+                self._update_running(mean, var)
+            return y
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
-        if not self.update_stats:
-            return y
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            self.running_mean.mul_(1.0 - self.momentum).add_(
-                mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(
-                var, alpha=self.momentum)
+        if self.update_stats:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self._update_running(mean, var)
         return y
+
+    @torch.no_grad()
+    def _update_running(self, mean, var):
+        self.running_mean.mul_(1.0 - self.momentum).add_(
+            mean, alpha=self.momentum)
+        self.running_var.mul_(1.0 - self.momentum).add_(
+            var, alpha=self.momentum)
+
+
+def _channel_sum(x: torch.Tensor) -> torch.Tensor:
+    """Per-channel sum of an NCHW tensor, accumulated in float64."""
+    return x.sum(dim=(0, 2, 3), dtype=torch.float64)
+
+
+def _per_channel(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return v.to(like.dtype)[None, :, None, None]
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch normalization over the rows of every rank of a
+    group (equal rows each), with the sums over the group taken by
+    collectives in the forward and the backward: the per-channel sum,
+    then the sum of squared deviations from the global mean (two passes,
+    as ``var_mean``), and in the backward the sums of the cotangent and of
+    its product with the normalized input. Sums accumulate in float64,
+    as ``F.batch_norm`` accumulates them on the CPU: the backward's
+    ``dy − mean(dy) − x̂·mean(dy·x̂)`` cancels, and float32 sums left
+    1e-2 of the gradient of the first stage's parameters off. The weight
+    and bias gradients are this rank's part (the trainer averages the
+    parameter gradients over the ranks). Every rank runs the same three
+    collectives per layer in the same order, the recompute of a
+    checkpointed stage included. Returns y and the global mean and biased
+    variance (no gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        import torch.distributed as dist
+
+        n = x.numel() // x.shape[1] * dist.get_world_size(group)
+        total = _channel_sum(x)
+        dist.all_reduce(total, group=group)
+        mean = total / n
+        centered = x - _per_channel(mean, x)
+        squares = _channel_sum(centered * centered)
+        dist.all_reduce(squares, group=group)
+        var = squares / n
+        invstd = torch.rsqrt(var + eps).to(x.dtype)
+        xhat = centered * invstd[None, :, None, None]
+        y = xhat * weight[None, :, None, None] + bias[None, :, None, None]
+        ctx.save_for_backward(xhat, weight, invstd)
+        ctx.n, ctx.group = n, group
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        import torch.distributed as dist
+
+        xhat, weight, invstd = ctx.saved_tensors
+        dbias = _channel_sum(dy)
+        dweight = _channel_sum(dy * xhat)
+        sums = torch.cat([dbias, dweight])
+        dist.all_reduce(sums, group=ctx.group)
+        c = dbias.shape[0]
+        dx = _per_channel(weight * invstd, dy) * (
+            dy - _per_channel(sums[:c] / ctx.n, dy)
+            - xhat * _per_channel(sums[c:] / ctx.n, dy))
+        return (dx, dweight.to(weight.dtype), dbias.to(weight.dtype), None,
+                None)
+
+
+def use_global_batch_stats(model: nn.Module, group) -> None:
+    """Give every :class:`BatchNorm` of ``model`` the data group whose
+    rows make up the global batch (``None``: this rank's batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.data_group = group
 
 
 def _bn(features: int) -> BatchNorm:

@@ -26,6 +26,15 @@ back through those steps. The JAX wrapper cuts the batch into chunks of
 whole batch in one launch. They also take every render size n ≥ 2, where
 the TPU kernel needs n² to be a multiple of 128.
 
+K6 replaces ``implicit_sums_pallas_slab`` (:543-591), the building block
+of the grid-sharded loss: K1 and K2 launched on a slab of image columns,
+the plane (x_local·n + y) of ``n_cols < n`` columns with the slab's first
+column x0 in slot 19, as on the TPU, where the slab reaches K1's and K2's
+own ``pallas_call``. It returns the per-sample partial sums over the slab
+(:func:`implicit_sums_slab_cuda`); the grid axis adds them up across
+ranks (``sqtpu_torch.parallel.sharded_losses``). Its launches are counted
+apart from K1's and K2's.
+
 Beside the kernels, :func:`emulate_fwd` and :func:`emulate_bwd` are a
 torch emulation of their own algorithm (same window, closed-form terms,
 Tacc residual and analytic backward), the analogue of Pallas interpret
@@ -44,6 +53,7 @@ import torch
 from sqtpu_torch.ops import geometry
 from sqtpu_torch.ops import losses
 from sqtpu_torch.ops import quaternion as quat
+from sqtpu_torch.ops import render
 from sqtpu_torch.ops.image import nearest_resize
 
 N_PAR = 17         # frame scalars: a(3), e(2), t_rot(3), R(9)
@@ -59,15 +69,18 @@ CLAMP = 30.0
 EXPCLAMP = 1.0686475e13  # exp(CLAMP) in float32
 MAX_BATCH = 65535        # the kernels' grid.y
 
-# Launches of K1 and K2 since the last reset_launches(); each wrapper adds
-# one where it launches its kernel and nowhere else.
+# Launches of K1 and K2 on the whole plane, and of K6 (the same kernels on
+# a column slab, forward and backward), since the last reset_launches();
+# each wrapper adds one where it launches its kernel and nowhere else.
 fwd_launches = 0
 bwd_launches = 0
+slab_fwd_launches = 0
+slab_bwd_launches = 0
 
 
 def reset_launches() -> None:
-    global fwd_launches, bwd_launches
-    fwd_launches = bwd_launches = 0
+    global fwd_launches, bwd_launches, slab_fwd_launches, slab_bwd_launches
+    fwd_launches = bwd_launches = slab_fwd_launches = slab_bwd_launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -144,11 +157,17 @@ def pack_params(pred_p: torch.Tensor, n: int, z_window: bool = True,
 
 def image_plane(img: torch.Tensor, n: int, dtype=torch.float32):
     """(B, H, W) or (B, 1, H, W) images -> the kernels' (B, n·n) plane:
-    nearest resize to n × n, row flip (y counts from the image bottom),
-    then the (x·n + y) layout. Differentiable."""
-    small = nearest_resize(losses._as_bhw(img).to(dtype), (n, n))
-    return torch.flip(small, dims=(-2,)).transpose(-1, -2).reshape(
-        small.shape[0], n * n).contiguous()
+    nearest resize to n × n, then :func:`slab_plane`. Differentiable."""
+    return slab_plane(nearest_resize(losses._as_bhw(img).to(dtype), (n, n)))
+
+
+def slab_plane(img_slab: torch.Tensor) -> torch.Tensor:
+    """(B, n, n_cols) columns of a resized image (rows top-down) -> the
+    kernels' (B, n·n_cols) plane: row flip (y counts from the image
+    bottom), then the (x_local·n + y) layout. Differentiable."""
+    b, n, n_cols = img_slab.shape
+    return torch.flip(img_slab, dims=(-2,)).transpose(-1, -2).reshape(
+        b, n * n_cols).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -354,10 +373,8 @@ def _raise_on(lib, err: int, what: str) -> None:
                            + lib.sqtpu_error_string(err).decode())
 
 
-def cuda_fwd(img_xy: torch.Tensor, par: torch.Tensor, n: int, n_cols: int,
-             tau: float, sharp: float):
-    """K1 on the card: same contract as :func:`emulate_fwd`."""
-    global fwd_launches
+def _launch_fwd(img_xy: torch.Tensor, par: torch.Tensor, n: int,
+                n_cols: int, tau: float, sharp: float, what: str):
     _check_operands(n, n_cols, par, planes=(img_xy,))
     lib = _lib()
     b = par.shape[0]
@@ -372,15 +389,13 @@ def cuda_fwd(img_xy: torch.Tensor, par: torch.Tensor, n: int, n_cols: int,
             par.data_ptr(), img_xy.data_ptr(), tacc.data_ptr(),
             partial.data_ptr(), sums.data_ptr(), b, n, n_cols, float(tau),
             float(sharp), stream)
-    _raise_on(lib, err, "implicit forward (K1)")
-    fwd_launches += 1
+    _raise_on(lib, err, what)
     return sums, tacc
 
 
-def cuda_bwd(img_xy: torch.Tensor, par: torch.Tensor, tacc: torch.Tensor,
-             g: torch.Tensor, n: int, n_cols: int, tau: float, sharp: float):
-    """K2 on the card: same contract as :func:`emulate_bwd`."""
-    global bwd_launches
+def _launch_bwd(img_xy: torch.Tensor, par: torch.Tensor, tacc: torch.Tensor,
+                g: torch.Tensor, n: int, n_cols: int, tau: float,
+                sharp: float, what: str):
     g = g.contiguous()
     _check_operands(n, n_cols, par, planes=(img_xy, tacc), vectors=(g,))
     lib = _lib()
@@ -397,9 +412,51 @@ def cuda_bwd(img_xy: torch.Tensor, par: torch.Tensor, tacc: torch.Tensor,
             par.data_ptr(), g.data_ptr(), img_xy.data_ptr(),
             tacc.data_ptr(), dimg.data_ptr(), partial.data_ptr(),
             dpar.data_ptr(), b, n, n_cols, float(tau), float(sharp), stream)
-    _raise_on(lib, err, "implicit backward (K2)")
-    bwd_launches += 1
+    _raise_on(lib, err, what)
     return dpar, dimg
+
+
+def cuda_fwd(img_xy: torch.Tensor, par: torch.Tensor, n: int, n_cols: int,
+             tau: float, sharp: float):
+    """K1 on the card: same contract as :func:`emulate_fwd`."""
+    global fwd_launches
+    out = _launch_fwd(img_xy, par, n, n_cols, tau, sharp,
+                      "implicit forward (K1)")
+    fwd_launches += 1
+    return out
+
+
+def cuda_bwd(img_xy: torch.Tensor, par: torch.Tensor, tacc: torch.Tensor,
+             g: torch.Tensor, n: int, n_cols: int, tau: float, sharp: float):
+    """K2 on the card: same contract as :func:`emulate_bwd`."""
+    global bwd_launches
+    out = _launch_bwd(img_xy, par, tacc, g, n, n_cols, tau, sharp,
+                      "implicit backward (K2)")
+    bwd_launches += 1
+    return out
+
+
+def cuda_slab_fwd(img_xy: torch.Tensor, par: torch.Tensor, n: int,
+                  n_cols: int, tau: float, sharp: float):
+    """K6's forward on the card: K1 on a slab of ``n_cols`` columns from
+    the x offset in slot 19; same contract as :func:`emulate_fwd`."""
+    global slab_fwd_launches
+    out = _launch_fwd(img_xy, par, n, n_cols, tau, sharp,
+                      "implicit slab forward (K6)")
+    slab_fwd_launches += 1
+    return out
+
+
+def cuda_slab_bwd(img_xy: torch.Tensor, par: torch.Tensor,
+                  tacc: torch.Tensor, g: torch.Tensor, n: int, n_cols: int,
+                  tau: float, sharp: float):
+    """K6's backward on the card: K2 on the slab of
+    :func:`cuda_slab_fwd`; same contract as :func:`emulate_bwd`."""
+    global slab_bwd_launches
+    out = _launch_bwd(img_xy, par, tacc, g, n, n_cols, tau, sharp,
+                      "implicit slab backward (K6)")
+    slab_bwd_launches += 1
+    return out
 
 
 class _Impl(NamedTuple):
@@ -408,6 +465,7 @@ class _Impl(NamedTuple):
 
 
 CUDA = _Impl(cuda_fwd, cuda_bwd)
+CUDA_SLAB = _Impl(cuda_slab_fwd, cuda_slab_bwd)
 EMULATION = _Impl(emulate_fwd, emulate_bwd)
 
 
@@ -485,6 +543,89 @@ def implicit_loss_emulated(img: torch.Tensor, pred_p: torch.Tensor,
     _check_inputs(img, pred_p, render_size)
     return _sweep_loss(EMULATION, img, pred_p, render_size, tau, sharpness,
                        z_window, z_margin)
+
+
+# ---------------------------------------------------------------------------
+# K6: the partial sums over a slab of image columns (:543-591)
+# ---------------------------------------------------------------------------
+
+def _check_slab(img_slab: torch.Tensor, pred_p: torch.Tensor, x0: int,
+                n: int) -> None:
+    if pred_p.ndim != 2 or pred_p.shape[-1] != geometry.N_PARAMS:
+        raise ValueError(f"params must be (B, 12), got {tuple(pred_p.shape)}")
+    if img_slab.ndim != 3 or img_slab.shape[:2] != (pred_p.shape[0], n):
+        raise ValueError(f"the slab must be (B, n, n_cols) with B = "
+                         f"{pred_p.shape[0]} and n = {n}, got "
+                         f"{tuple(img_slab.shape)}")
+    n_cols = img_slab.shape[-1]
+    if n < 2 or n_cols < 1 or not 0 <= x0 <= n - n_cols:
+        raise ValueError(f"columns [{x0}, {x0 + n_cols}) are not a slab of "
+                         f"the {n}-column lattice")
+
+
+def _slab_sums(impl: _Impl, img_slab, pred_p, x0, n, tau, sharpness,
+               z_window, z_margin):
+    par = pack_params(pred_p, n, z_window, z_margin, x0=x0)
+    return _ImplicitCore.apply(slab_plane(img_slab.to(pred_p.dtype)), par, n,
+                               img_slab.shape[-1], float(tau),
+                               float(sharpness), impl)
+
+
+def implicit_sums_slab_plain(img_slab: torch.Tensor, pred_p: torch.Tensor,
+                             x0: int, render_size: int, tau: float = 1.5,
+                             sharpness: float = 260.0) -> torch.Tensor:
+    """Per-sample Σ|img − depth| over the columns [x0, x0 + n_cols) of the
+    render lattice, in plain torch (autograd): the soft render of the
+    slab's lattice x axis only (``sharded_losses.py:175-186``), full z
+    sweep. ``img_slab`` is (B, n, n_cols) in image space, already resized
+    to the lattice. Returns (B,) in ``pred_p``'s dtype."""
+    n = render_size
+    _check_slab(img_slab, pred_p, x0, n)
+    ax = geometry.make_axis(n, "implicit", dtype=pred_p.dtype,
+                            device=pred_p.device)
+    ax_x = ax[x0:x0 + img_slab.shape[-1]]
+    depth = render.depth_from_axes(ax_x, ax, ax,
+                                   geometry.clamp_params(pred_p), tau,
+                                   sharpness, n)
+    return torch.sum(torch.abs(img_slab.to(pred_p.dtype) - depth),
+                     dim=(1, 2))
+
+
+def implicit_sums_slab_cuda(img_slab: torch.Tensor, pred_p: torch.Tensor,
+                            x0: int, render_size: int, tau: float = 1.5,
+                            sharpness: float = 260.0, z_window: bool = True,
+                            z_margin: float = Z_MARGIN) -> torch.Tensor:
+    """K6: the per-sample partial sums of :func:`implicit_sums_slab_plain`
+    through K1 (forward) and K2 (backward) launched on the slab, with the
+    gradient to ``pred_p`` and to the slab, for a CUDA float32 ``pred_p``;
+    the plain version for a CPU tensor. The z window and the full sweep
+    are K1's. On a CUDA tensor it launches the kernels or raises."""
+    _check_slab(img_slab, pred_p, x0, render_size)
+    if pred_p.device.type == "cpu":
+        return implicit_sums_slab_plain(img_slab, pred_p, x0, render_size,
+                                        tau, sharpness)
+    if pred_p.device.type != "cuda":
+        raise ValueError(f"no kernel for device {pred_p.device}")
+    if pred_p.dtype != torch.float32:
+        raise TypeError(f"the implicit-loss kernels take float32 params, "
+                        f"got {pred_p.dtype}")
+    if img_slab.device != pred_p.device:
+        raise ValueError(f"slab on {img_slab.device}, params on "
+                         f"{pred_p.device}")
+    return _slab_sums(CUDA_SLAB, img_slab, pred_p, x0, render_size, tau,
+                      sharpness, z_window, z_margin)
+
+
+def implicit_sums_slab_emulated(img_slab: torch.Tensor, pred_p: torch.Tensor,
+                                x0: int, render_size: int, tau: float = 1.5,
+                                sharpness: float = 260.0,
+                                z_window: bool = True,
+                                z_margin: float = Z_MARGIN) -> torch.Tensor:
+    """The same partial sums through the torch emulation of K1 and K2 on
+    the slab, on any device, in ``pred_p``'s floating dtype."""
+    _check_slab(img_slab, pred_p, x0, render_size)
+    return _slab_sums(EMULATION, img_slab, pred_p, x0, render_size, tau,
+                      sharpness, z_window, z_margin)
 
 
 def window_points(par: torch.Tensor, n: int, n_cols: int) -> int:

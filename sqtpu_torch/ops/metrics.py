@@ -26,17 +26,24 @@ def _binary_voxels(p: torch.Tensor, render_size: int) -> torch.Tensor:
     return geometry.field_grid(ax, ax, ax, p, guard=False) <= 1.0
 
 
-def iou(true_p: torch.Tensor, pred_p: torch.Tensor, render_size: int = 64,
-        reduce: bool = True) -> torch.Tensor:
-    """Voxel IoU. ``reduce`` pools intersection and union over the batch;
-    otherwise per-sample IoUs (B,)."""
+def iou_counts(true_p: torch.Tensor, pred_p: torch.Tensor,
+               render_size: int = 64):
+    """Per-sample voxel counts of the intersection and the union, (B,)
+    int64 each."""
     inter, union = [], []
     for lo in range(0, true_p.shape[0], _IOU_CHUNK):
         a = _binary_voxels(true_p[lo:lo + _IOU_CHUNK], render_size)
         b = _binary_voxels(pred_p[lo:lo + _IOU_CHUNK], render_size)
         inter.append((a & b).sum(dim=(1, 2, 3)))
         union.append((a | b).sum(dim=(1, 2, 3)))
-    inter, union = torch.cat(inter), torch.cat(union)
+    return torch.cat(inter), torch.cat(union)
+
+
+def iou(true_p: torch.Tensor, pred_p: torch.Tensor, render_size: int = 64,
+        reduce: bool = True) -> torch.Tensor:
+    """Voxel IoU. ``reduce`` pools intersection and union over the batch;
+    otherwise per-sample IoUs (B,)."""
+    inter, union = iou_counts(true_p, pred_p, render_size)
     if reduce:
         return inter.sum().to(true_p.dtype) / union.sum().to(true_p.dtype)
     return inter.to(true_p.dtype) / union.to(true_p.dtype)

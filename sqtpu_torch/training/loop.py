@@ -17,6 +17,17 @@ the resident dataset, each epoch's training batches, and a validation
 stream re-seeded every epoch so validation batches are identical across
 epochs (the JAX package's fixed validation key). The same seed gives
 other shapes than ``jax.random`` does.
+
+Over several ranks (``python -m torch.distributed.run``, the JAX
+package's ('data', 'grid') mesh, :mod:`sqtpu_torch.parallel`) every rank
+draws the same global batch from the same generator and keeps its rows;
+the loss, the BatchNorm statistics and the gradient are the global
+batch's, as under the JAX package's sharded ``jit``: the kernel losses go
+through :mod:`sqtpu_torch.parallel.sharded_losses`, every other batch
+mean is averaged over the data group, BatchNorm sums its moments over the
+data group, and the gradients are averaged over the world after the
+backward. Rank 0 logs and writes the checkpoints. Without the launcher the
+trainer is one rank and runs no collective.
 """
 
 from __future__ import annotations
@@ -31,9 +42,15 @@ import torch
 from sqtpu_torch.data.bmp import write_bmp
 from sqtpu_torch.data.synthetic import make_batch
 from sqtpu_torch.models import build_model, params_vector
+from sqtpu_torch.models.resnet import use_global_batch_stats
 from sqtpu_torch.ops import losses, metrics
-from sqtpu_torch.ops.kernels import (
-    explicit_loss_auto, implicit_loss_auto, render_hard_auto,
+from sqtpu_torch.ops.kernels import launch_counts, render_hard_auto
+from sqtpu_torch.parallel.mesh import (
+    Layout, all_reduce_sum, average_gradients, barrier, broadcast_state,
+    data_mean, gather_objects, init_layout, shutdown,
+)
+from sqtpu_torch.parallel.sharded_losses import (
+    explicit_loss_dp, implicit_loss_dp, implicit_loss_gridsharded,
 )
 from sqtpu_torch.training.lr import ReduceLROnPlateau, step_schedule_2019
 from sqtpu_torch.training.state import (
@@ -57,33 +74,36 @@ def _generator(device: torch.device, seed: int, stream: int,
     return gen
 
 
-def _elong_weights(cfg: TrainConfig, labels):
-    """Per-sample weights 1 + w·(max(a)/min(a) − 1), normalized to mean 1,
-    that emphasize elongated shapes in the supervised terms; None when
-    ``elong_weight`` is off."""
+def _elong_weights(cfg: TrainConfig, labels,
+                   layout: Optional[Layout] = None):
+    """Per-sample weights 1 + w·(max(a)/min(a) − 1), normalized to mean 1
+    over the global batch, that emphasize elongated shapes in the
+    supervised terms; None when ``elong_weight`` is off."""
+    layout = layout or Layout()
     if cfg.elong_weight <= 0:
         return None
     a = labels[..., 0:3]
     elong = torch.max(a, dim=-1).values / torch.clamp(
         torch.min(a, dim=-1).values, min=1e-6)
     w = 1.0 + cfg.elong_weight * (elong - 1.0)
-    return w / torch.mean(w)
+    return w / data_mean(torch.mean(w), layout)
 
 
-def _weighted_mean(cfg: TrainConfig, per, labels):
-    w = _elong_weights(cfg, labels)
-    return torch.mean(per if w is None else per * w)
+def _weighted_mean(cfg: TrainConfig, per, labels, layout: Layout):
+    w = _elong_weights(cfg, labels, layout)
+    return data_mean(torch.mean(per if w is None else per * w), layout)
 
 
-def _explicit_geo(cfg: TrainConfig, pred, labels):
-    """The explicit occupancy-MSE geometry term: through K4/K5 on the card
-    with ``use_pallas`` (gradient with respect to pred only; the labels
-    are constants here), else the plain loss."""
+def _explicit_geo(cfg: TrainConfig, pred, labels, layout: Layout):
+    """The explicit occupancy-MSE geometry term of the global batch:
+    through K4/K5 on the card with ``use_pallas`` (gradient with respect
+    to pred only; the labels are constants here), else the plain loss."""
     if cfg.use_pallas:
-        return explicit_loss_auto(labels[..., :12], pred[..., :12],
-                                  cfg.render_size, sharp=cfg.explicit_sharp)
-    return losses.explicit_loss(labels[..., :12], pred[..., :12],
+        return explicit_loss_dp(labels[..., :12], pred[..., :12], layout,
                                 cfg.render_size, sharp=cfg.explicit_sharp)
+    return data_mean(losses.explicit_loss(
+        labels[..., :12], pred[..., :12], cfg.render_size,
+        sharp=cfg.explicit_sharp), layout)
 
 
 def _supervised_sym(pred, labels, col_weight=None):
@@ -95,80 +115,109 @@ def _supervised_sym(pred, labels, col_weight=None):
                                          reduce=False))
 
 
-def _compute_loss(cfg: TrainConfig, pred, imgs, labels):
+def _compute_loss(cfg: TrainConfig, pred, imgs, labels,
+                  layout: Optional[Layout] = None):
     """The JAX package's loss selection (``training/loop.py:78-243``) for
-    every loss this port runs; ``leastsquares`` and ``keras_chamfer``
-    raise in :func:`check_slice` before training starts."""
+    every loss this port runs, as the loss of the global batch when
+    ``layout`` spans several ranks (``pred``, ``imgs`` and ``labels`` are
+    then this rank's rows): the implicit loss through the grid-sharded
+    loss when the grid axis is larger than 1, the kernel losses through
+    their data-parallel versions (:78-107, :58-75), every other batch
+    mean averaged over the data group. ``leastsquares`` and
+    ``keras_chamfer`` raise in :func:`check_slice` before training
+    starts."""
+    layout = layout or Layout()
     if cfg.loss == "implicit":
+        if layout.n_grid > 1:
+            return implicit_loss_gridsharded(
+                imgs[..., 0], pred, layout, cfg.render_size, cfg.tau,
+                cfg.sigmoid_sharpness, use_pallas=cfg.use_pallas)
         if cfg.use_pallas:
-            return implicit_loss_auto(imgs[..., 0], pred, cfg.render_size,
-                                      cfg.tau, cfg.sigmoid_sharpness)
-        return losses.implicit_loss(imgs[..., 0], pred, cfg.render_size,
-                                    cfg.tau, cfg.sigmoid_sharpness)
+            return implicit_loss_dp(imgs[..., 0], pred, layout,
+                                    cfg.render_size, cfg.tau,
+                                    cfg.sigmoid_sharpness)
+        return data_mean(losses.implicit_loss(
+            imgs[..., 0], pred, cfg.render_size, cfg.tau,
+            cfg.sigmoid_sharpness), layout)
     if cfg.loss == "explicit":
-        return _explicit_geo(cfg, pred, labels)
+        return _explicit_geo(cfg, pred, labels, layout)
     if cfg.loss == "param_mse":
-        return losses.param_mse(pred, labels[..., :pred.shape[-1]])
+        return data_mean(losses.param_mse(pred, labels[..., :pred.shape[-1]]),
+                         layout)
     if cfg.loss == "supervised":
         per = (losses.param_mse(pred[..., :8], labels[..., :8], reduce=False)
                + losses.quaternion_loss(pred[..., 8:12], labels[..., 8:12],
                                         reduce=False))
-        return _weighted_mean(cfg, per, labels)
+        return _weighted_mean(cfg, per, labels, layout)
     if cfg.loss == "supervised_sym":
-        return _weighted_mean(cfg, _supervised_sym(pred, labels), labels)
+        return _weighted_mean(cfg, _supervised_sym(pred, labels), labels,
+                              layout)
     if cfg.loss == "quaternion":
-        return losses.quaternion_loss(pred[..., -4:], labels[..., 8:12])
+        return data_mean(losses.quaternion_loss(pred[..., -4:],
+                                                labels[..., 8:12]), layout)
     if cfg.loss == "quaternion_sym":
-        return losses.quaternion_loss_sym(pred[..., -4:], labels[..., 8:12])
+        return data_mean(losses.quaternion_loss_sym(pred[..., -4:],
+                                                    labels[..., 8:12]),
+                         layout)
     if cfg.loss == "supervised_geo":
         per = (_supervised_sym(pred, labels)
                + cfg.geo_weight * losses.rotation_moment_loss(
                    pred[..., 8:12], labels, reduce=False))
-        return _weighted_mean(cfg, per, labels)
+        return _weighted_mean(cfg, per, labels, layout)
     if cfg.loss == "implicit_sym":
         impl = _compute_loss(dataclasses.replace(cfg, loss="implicit"), pred,
-                             imgs, labels)
+                             imgs, labels, layout)
         sup = _compute_loss(dataclasses.replace(cfg, loss="supervised_sym"),
-                            pred, imgs, labels)
+                            pred, imgs, labels, layout)
         return impl + cfg.aux_weight * sup
     if cfg.loss == "supervised_gauge":
         per = losses.param_gauge_loss(pred[..., :12], labels, reduce=False)
-        return _weighted_mean(cfg, per, labels)
+        return _weighted_mean(cfg, per, labels, layout)
     if cfg.loss == "explicit_sym":
         # the geometry term plus a D2-only anchor: for canonical labels the
         # orbit minimum handles the unobservable flips and the label pins
         # the a1 <-> a2 gauge
-        expl = _explicit_geo(cfg, pred, labels)
+        expl = _explicit_geo(cfg, pred, labels, layout)
         cw = None
         if cfg.shape_weight != 1.0:
             cw = pred.new_tensor([1.0, 1.0, 1.0, cfg.shape_weight,
                                   cfg.shape_weight, 1.0, 1.0, 1.0])
         return expl + cfg.gauge_weight * _weighted_mean(
-            cfg, _supervised_sym(pred, labels, cw), labels)
+            cfg, _supervised_sym(pred, labels, cw), labels, layout)
     if cfg.loss == "explicit_gauge":
-        expl = _explicit_geo(cfg, pred, labels)
+        expl = _explicit_geo(cfg, pred, labels, layout)
         per = losses.param_gauge_loss(pred[..., :12], labels, reduce=False)
-        return expl + cfg.gauge_weight * _weighted_mean(cfg, per, labels)
+        return expl + cfg.gauge_weight * _weighted_mean(cfg, per, labels,
+                                                        layout)
     if cfg.loss == "implicit_gauge":
         impl = _compute_loss(dataclasses.replace(cfg, loss="implicit"), pred,
-                             imgs, labels)
+                             imgs, labels, layout)
         per = losses.param_gauge_loss(pred[..., :12], labels, reduce=False)
-        return impl + cfg.aux_weight * _weighted_mean(cfg, per, labels)
+        return impl + cfg.aux_weight * _weighted_mean(cfg, per, labels,
+                                                      layout)
     raise NotImplementedError(f"loss {cfg.loss!r} is not ported yet "
                               "(see ROADMAP.md)")
 
 
-def make_train_step(state: TrainState, cfg: TrainConfig):
+def make_train_step(state: TrainState, cfg: TrainConfig,
+                    layout: Optional[Layout] = None):
     """The train step: model in train mode -> params vector -> loss ->
     backward -> (clip) -> Adam. Returns the loss, detached. With
     ``cfg.remat`` the encoder's activations are recomputed in the backward.
+
+    Over several ranks (``layout``) the step takes this rank's rows and
+    returns the global batch's loss; after the backward the gradients are
+    averaged over the world, and after the update rank 0's BatchNorm
+    statistics are broadcast, so every rank holds the same model.
 
     ``nan_policy="skip"`` discards the whole update when the loss is not
     finite: the BatchNorm running statistics the forward already moved are
     put back, and no backward or optimizer step runs (parameters and Adam
     moments stay as they were). That check reads the loss on the host
-    once per step."""
+    once per step; the loss is the global one, so every rank skips or
+    none does."""
     model = state.model
+    layout = layout or Layout()
     skip_nonfinite = cfg.nan_policy == "skip"
 
     def step(imgs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -178,33 +227,46 @@ def make_train_step(state: TrainState, cfg: TrainConfig):
             saved = [b.detach().clone() for b in model.buffers()]
         state.optimizer.zero_grad(set_to_none=True)
         pred = params_vector(model(imgs, remat=cfg.remat))
-        loss = _compute_loss(cfg, pred, imgs, labels)
+        loss = _compute_loss(cfg, pred, imgs, labels, layout)
         if skip_nonfinite and not bool(torch.isfinite(loss)):
             with torch.no_grad():
                 for b, s in zip(model.buffers(), saved):
                     b.copy_(s)
             return loss.detach()
         loss.backward()
+        average_gradients(model.parameters(), layout)
         state.apply_gradients()
+        broadcast_state(model.buffers(), layout)
         return loss.detach()
 
     return step
 
 
-def make_eval_step(state: TrainState, cfg: TrainConfig):
+def make_eval_step(state: TrainState, cfg: TrainConfig,
+                   layout: Optional[Layout] = None):
     """Validation: eval mode; the loss, the IoU at ``acc_render_size``³
-    and the mean rotation error modulo the D2 symmetry."""
+    (intersection and union pooled over the batch) and the mean rotation
+    error modulo the D2 symmetry, each of the global batch over several
+    ranks (``pred`` is this rank's rows')."""
     model = state.model
+    layout = layout or Layout()
 
     @torch.no_grad()
     def step(imgs: torch.Tensor, labels: torch.Tensor):
         model.eval()
         imgs = imgs.to(torch.float32)
         pred = params_vector(model(imgs))
-        loss = _compute_loss(cfg, pred, imgs, labels)
-        acc = metrics.iou(labels, pred, cfg.acc_render_size)
-        ang = torch.mean(metrics.angle_error_sym(labels[..., 8:12],
-                                                 pred[..., 8:12]))
+        loss = _compute_loss(cfg, pred, imgs, labels, layout)
+        ang = data_mean(torch.mean(metrics.angle_error_sym(
+            labels[..., 8:12], pred[..., 8:12])), layout)
+        if layout.data_group is None:
+            acc = metrics.iou(labels, pred, cfg.acc_render_size)
+        else:
+            inter, union = metrics.iou_counts(labels, pred,
+                                              cfg.acc_render_size)
+            counts = all_reduce_sum(torch.stack([inter.sum(), union.sum()]),
+                                    layout.data_group)
+            acc = counts[0].to(labels.dtype) / counts[1].to(labels.dtype)
         return loss, acc, ang, pred
 
     return step
@@ -285,10 +347,24 @@ class SyntheticResident:
 # ---------------------------------------------------------------------------
 
 def train(cfg: TrainConfig, synthetic_size: Optional[int] = None):
-    """Run training per ``cfg``; returns ``(state, history)``."""
+    """Run training per ``cfg``; returns ``(state, history)``. Under
+    ``python -m torch.distributed.run`` each process is one rank of a
+    ('data', 'grid') layout with ``cfg.n_grid`` ranks on the grid axis
+    (the JAX package's ``make_mesh(n_grid=...)``); the process group is
+    left on every path out."""
     check_slice(cfg)
-    device = resolve_device(cfg.device)
-    logger = MetricLogger(cfg.ckpt_dir or "", "train")
+    layout = init_layout(cfg.n_grid, resolve_device(cfg.device))
+    try:
+        return _train(cfg, layout, synthetic_size)
+    finally:
+        if layout.world > 1:  # the group init_layout joined
+            shutdown()
+
+
+def _train(cfg: TrainConfig, layout: Layout, synthetic_size: Optional[int]):
+    device = layout.device
+    main = layout.is_main
+    logger = MetricLogger(cfg.ckpt_dir or "", "train", quiet=not main)
     nan_guard = NanGuard(cfg.nan_policy)
 
     with torch.random.fork_rng(devices=[]):
@@ -297,24 +373,31 @@ def train(cfg: TrainConfig, synthetic_size: Optional[int] = None):
     if cfg.init_weights:
         # full-model warm start from a portable npz; fresh optimizer
         load_weights_npz(cfg.init_weights, model)
-        MetricLogger.line(f"warm-started all weights from {cfg.init_weights}")
+        logger.say(f"warm-started all weights from {cfg.init_weights}")
     model.to(device)
+    broadcast_state(model.state_dict().values(), layout)
+    use_global_batch_stats(model, layout.data_group)
     state = create_train_state(model, cfg)
     n_params = sum(p.numel() for p in model.parameters())
-    MetricLogger.line(f"model={cfg.model} params={n_params:,} "
-                      f"loss={cfg.loss} device={device}")
+    logger.say(f"model={cfg.model} params={n_params:,} loss={cfg.loss} "
+               f"device={device} mesh={{'data': {layout.n_data}, "
+               f"'grid': {layout.n_grid}}} backend="
+               f"{layout.backend or 'none (one rank)'}")
 
-    train_step = make_train_step(state, cfg)
-    eval_step = make_eval_step(state, cfg)
+    train_step = make_train_step(state, cfg, layout)
+    eval_step = make_eval_step(state, cfg, layout)
 
-    # ----- data
+    # ----- data: every rank draws the global batch and keeps its rows
+    rows = layout.rows(cfg.batch_size)
     if cfg.data == "synthetic":
         size = (synthetic_size or cfg.synthetic_size
                 or max(cfg.batch_size * cfg.steps_per_epoch // 4,
                        cfg.batch_size * 4))
-        MetricLogger.line(f"rendering {size} synthetic depth maps on "
-                          f"{device}…")
-        dataset = SyntheticResident(cfg, size, cfg.seed, device)
+        logger.say(f"rendering {size} synthetic depth maps on {device}…")
+        # one writer of the cache file; the other ranks render the same data
+        dataset = SyntheticResident(
+            cfg if main else dataclasses.replace(cfg, data_cache=False),
+            size, cfg.seed, device)
     else:
         dataset = None
 
@@ -322,10 +405,11 @@ def train(cfg: TrainConfig, synthetic_size: Optional[int] = None):
         for _ in range(n):
             if dataset is None:
                 yield make_batch(gen, cfg.batch_size, cfg.image_size,
-                                 cfg.renderer, iso=cfg.iso)
-            else:
-                yield dataset.val_batch(gen) if val \
-                    else dataset.train_batch(gen)
+                                 cfg.renderer, iso=cfg.iso, rows=rows)
+                continue
+            imgs, labels = (dataset.val_batch(gen) if val
+                            else dataset.train_batch(gen))
+            yield imgs[rows], labels[rows]
 
     # ----- resume
     history = {"loss": [], "val_loss": [], "val_acc": []}
@@ -336,8 +420,10 @@ def train(cfg: TrainConfig, synthetic_size: Optional[int] = None):
     ckpt_path = os.path.join(cfg.ckpt_dir, "best")
     last_path = os.path.join(cfg.ckpt_dir, "last")
     resume_path = last_path if cfg.resume_from == "last" else ckpt_path
+    if cfg.continue_training:
+        barrier(layout)  # rank 0 may still be writing a checkpoint
     if cfg.continue_training and checkpoint_exists(resume_path):
-        MetricLogger.line("Continuing with training…")
+        logger.say("Continuing with training…")
         saved_cfg = load_config(resume_path, TrainConfig)
         if saved_cfg.model != cfg.model:
             raise ValueError(f"{resume_path} holds a {saved_cfg.model!r} "
@@ -356,7 +442,7 @@ def train(cfg: TrainConfig, synthetic_size: Optional[int] = None):
                                           cfg.plateau_patience,
                                           cfg.plateau_factor)
             reset_best = True
-            MetricLogger.line(f"reset LR to {cfg.reset_lr:g} on resume")
+            logger.say(f"reset LR to {cfg.reset_lr:g} on resume")
 
     finite_vals = [v for v in history.get("val_loss", []) if np.isfinite(v)]
     best_val = None if (reset_best or not finite_vals) else min(finite_vals)
@@ -373,8 +459,8 @@ def train(cfg: TrainConfig, synthetic_size: Optional[int] = None):
                 batches(train_gen, cfg.steps_per_epoch, val=False)):
             loss = train_step(imgs, labels)
             losses_dev.append(loss)
-            meter.update(int(imgs.shape[0]))
-            if step_idx % cfg.log_interval == 0:
+            meter.update(cfg.batch_size)  # the global batch
+            if main and step_idx % cfg.log_interval == 0:
                 loss_val = float(loss)
                 nan_guard.check(loss_val)
                 MetricLogger.progress(
@@ -385,7 +471,7 @@ def train(cfg: TrainConfig, synthetic_size: Optional[int] = None):
             finite = epoch_losses[np.isfinite(epoch_losses)]
             train_loss = float(finite.mean()) if finite.size else float("nan")
             if finite.size < epoch_losses.size:
-                MetricLogger.line(
+                logger.say(
                     f"[nan-guard] {epoch_losses.size - finite.size} "
                     f"non-finite step losses this epoch")
         else:
@@ -416,7 +502,7 @@ def train(cfg: TrainConfig, synthetic_size: Optional[int] = None):
             ang_hist.append(float("nan"))  # keep every list epoch-aligned
         ang_hist.append(val_ang)
 
-        if (epoch == 0 and cfg.ckpt_dir and cfg.compare_images > 0
+        if (main and epoch == 0 and cfg.ckpt_dir and cfg.compare_images > 0
                 and val_first is not None):
             _save_compare_images(cfg, val_first[0], val_first[1],
                                  os.path.join(cfg.ckpt_dir, "compare"))
@@ -426,32 +512,43 @@ def train(cfg: TrainConfig, synthetic_size: Optional[int] = None):
         else:
             new_lr = scheduler.step(val_loss)
         if abs(new_lr - get_lr(state)) > 1e-6 * max(new_lr, 1e-12):
-            MetricLogger.line(f"Reducing learning rate to {new_lr:g}")
+            logger.say(f"Reducing learning rate to {new_lr:g}")
             set_lr(state, new_lr)
 
         # a non-finite val_loss neither becomes the best nor poisons it
         if cfg.ckpt_dir and np.isfinite(val_loss) and (
                 best_val is None or val_loss < best_val):
             best_val = val_loss
-            save_checkpoint(ckpt_path, state, history, epoch, cfg, scheduler)
+            if main:
+                save_checkpoint(ckpt_path, state, history, epoch, cfg,
+                                scheduler)
             saved = " [saved]"
         else:
             saved = ""
         last_every = max(int(cfg.save_last_interval), 1)
         if cfg.ckpt_dir and cfg.save_last and (
                 epoch % last_every == last_every - 1):
-            save_checkpoint(last_path, state, history, epoch, cfg, scheduler)
+            if main:
+                save_checkpoint(last_path, state, history, epoch, cfg,
+                                scheduler)
             last_saved_epoch = epoch
-        MetricLogger.line(
+        logger.say(
             f"Epoch {epoch}: loss {train_loss:.6f}  val_loss {val_loss:.6f} "
             f"val_acc {val_acc:.6f}  {epoch_rate:.0f} imgs/s{saved}")
+        # each rank's kernel launches since its counters were last reset,
+        # and its peak device memory
+        ranks = gather_objects({
+            "launches": launch_counts(),
+            "max_memory_mb": (torch.cuda.max_memory_allocated(device) / 2**20
+                              if device.type == "cuda" else None)}, layout)
         logger.log(epoch=epoch, loss=train_loss, val_loss=val_loss,
                    val_acc=val_acc, val_angle_sym=val_ang,
-                   lr=get_lr(state), imgs_per_sec=epoch_rate)
+                   lr=get_lr(state), imgs_per_sec=epoch_rate, ranks=ranks)
 
     # 'last' reflects the final state on any exit from the loop
-    if cfg.ckpt_dir and cfg.save_last and epoch > last_saved_epoch:
+    if main and cfg.ckpt_dir and cfg.save_last and epoch > last_saved_epoch:
         save_checkpoint(last_path, state, history, epoch, cfg, scheduler)
+    barrier(layout)  # every rank returns once the checkpoints are written
     return state, history
 
 

@@ -144,7 +144,10 @@ class ServeConfig:
 
 def check_slice(cfg) -> None:
     """Raise ``NotImplementedError`` for an option this port does not run
-    yet, naming the ROADMAP.md slice that ports it."""
+    yet, naming the ROADMAP.md slice that ports it; for a training config,
+    raise ``ValueError`` when the ranks cannot be laid out
+    (:func:`check_layout`) over the launcher's ``WORLD_SIZE`` (1 without
+    it)."""
     from sqtpu_torch.models import build_model, MODEL_REGISTRY
 
     if cfg.model not in MODEL_REGISTRY:
@@ -167,6 +170,29 @@ def check_slice(cfg) -> None:
     if later:
         raise NotImplementedError(
             "not ported yet (see ROADMAP.md): " + "; ".join(later))
+    if isinstance(cfg, TrainConfig):
+        from sqtpu_torch.parallel.mesh import launcher_world_size
+
+        check_layout(cfg, launcher_world_size())
+
+
+def check_layout(cfg: TrainConfig, world_size: int) -> None:
+    """Raise ``ValueError`` unless ``world_size`` ranks form a ('data',
+    'grid') layout with ``cfg.n_grid`` ranks on the grid axis (the JAX
+    package's ``make_mesh``): the world a multiple of ``n_grid``, the
+    render size a multiple of ``n_grid`` (each rank sweeps as many
+    columns, ``sharded_losses.py:154``) and the batch a multiple of the
+    data axis (equal rows per rank)."""
+    if cfg.n_grid < 1 or world_size % cfg.n_grid:
+        raise ValueError(f"world size {world_size} is not a multiple of "
+                         f"n_grid={cfg.n_grid}")
+    if cfg.render_size % cfg.n_grid:
+        raise ValueError(f"render_size {cfg.render_size} must divide the "
+                         f"grid axis n_grid={cfg.n_grid}")
+    n_data = world_size // cfg.n_grid
+    if cfg.batch_size % n_data:
+        raise ValueError(f"batch_size {cfg.batch_size} must divide the "
+                         f"data axis of {n_data} ranks")
 
 
 # The losses this port runs (training/loop.py _compute_loss).
@@ -195,8 +221,6 @@ def _train_options_later(cfg: "TrainConfig") -> list:
         later.append("pretrained: Slice F (torchvision encoder weights)")
     if cfg.init_base or cfg.freeze_base:
         later.append("init_base/freeze_base: Slice D (models/refiner.py)")
-    if cfg.n_grid > 1:
-        later.append("n_grid > 1: Slice E (grid-sharded loss, kernel K6)")
     if cfg.dtype != "float32":
         later.append(f"dtype={cfg.dtype!r}: Slice F")
     if cfg.profile_dir:

@@ -17,10 +17,16 @@ import torch
 
 
 class MetricLogger:
-    def __init__(self, out_dir: str = "", run_name: str = "train"):
+    """Metrics to ``<out_dir>/<run_name>_metrics.jsonl`` and messages to
+    stdout. ``quiet`` (every rank but rank 0 of a multi-rank run) writes
+    no file and prints nothing through :meth:`say`."""
+
+    def __init__(self, out_dir: str = "", run_name: str = "train",
+                 quiet: bool = False):
         self.out_dir = out_dir
+        self.quiet = quiet
         self.path = (os.path.join(out_dir, f"{run_name}_metrics.jsonl")
-                     if out_dir else None)
+                     if out_dir and not quiet else None)
         if self.path:
             os.makedirs(out_dir, exist_ok=True)
         self._t0 = time.time()
@@ -34,6 +40,10 @@ class MetricLogger:
             with open(self.path, "a") as f:
                 f.write(json.dumps(rec) + "\n")
         return rec
+
+    def say(self, msg: str):
+        if not self.quiet:
+            self.line(msg)
 
     @staticmethod
     def progress(msg: str):

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: K3 (the hard renderer), K1/K2 (the
-implicit loss) and K4/K5 (the explicit loss).
+implicit loss), K6 (K1/K2 on a column slab) and K4/K5 (the explicit
+loss).
 
 Every test here launches a kernel and skips without an NVIDIA GPU. The
 file imports neither JAX nor the JAX package, so it runs on a card's host
@@ -13,7 +14,12 @@ K3 is held against its plain version with the renderer's bound: fewer than
 torch emulation of their algorithm and against the plain loss (autograd)
 with the tolerances of tests/test_torch_port_implicit.py, K4/K5 with those
 of tests/test_torch_port_explicit.py; every kernel must be identical run
-to run.
+to run. K6's slab sums and gradients over every x0 add up to K1/K2's on
+the whole plane (sums relative 1e-5, the params' gradient with K1/K2's
+tolerances, the image gradient rtol 1e-4), and each slab equals the
+emulation's and the plain slab render's (sums within 1e-5 of the
+sample's whole-plane sum). Slabs of 10 columns (640 pixels) leave the
+last 256-thread block of the grid part idle.
 """
 
 import numpy as np
@@ -21,6 +27,7 @@ import pytest
 import torch
 
 from sqtpu_torch.ops import losses as tlosses
+from sqtpu_torch.ops.image import nearest_resize
 from sqtpu_torch.ops import render as trender
 from sqtpu_torch.ops.kernels import explicit as KE
 from sqtpu_torch.ops.kernels import hardrender
@@ -136,6 +143,78 @@ def test_kernels_match_emulation_and_plain_on_card(cuda_device, z_window):
         np.testing.assert_allclose(got[1], want[1], rtol=5e-3,
                                    atol=grad_atol(want[1]))
         np.testing.assert_allclose(got[2], want[2], rtol=1e-4, atol=0)
+
+
+def _sums_value_and_grads(fn, small, p, g):
+    """Per-sample sums of ``fn(slab, params)`` and the gradients of
+    Σ g·sums with respect to the params and the slab."""
+    tp = p.clone().requires_grad_(True)
+    ts = small.clone().requires_grad_(True)
+    sums = fn(ts, tp)
+    torch.sum(sums * g).backward()
+    return sums.detach(), tp.grad, ts.grad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cols,z_window", [(32, True), (16, True),
+                                             (32, False), (24, True),
+                                             (10, True), (10, False)])
+def test_slab_kernel_adds_up_to_the_plane_on_card(cuda_device, n_cols,
+                                                  z_window):
+    p, img = _batch(72, 8)
+    n = 64
+    tp = torch.tensor(p, device=cuda_device)
+    small = nearest_resize(torch.tensor(img, device=cuda_device), (n, n))
+    g = torch.linspace(0.5, 1.5, 8, device=cuda_device)
+    K.reset_launches()
+
+    def plane(ts, pp):  # K1/K2 on the whole plane
+        return K._ImplicitCore.apply(
+            K.slab_plane(ts), K.pack_params(pp, n, z_window), n, n, 1.5,
+            260.0, K.CUDA)
+
+    full = _sums_value_and_grads(plane, small, tp, g)
+    assert (K.fwd_launches, K.bwd_launches) == (1, 1)
+    parts = []
+    for x0 in range(0, n, n_cols):
+        cols = small[:, :, x0:x0 + n_cols].contiguous()
+
+        def slab(ts, pp, fn=K.implicit_sums_slab_cuda, x0=x0):
+            return fn(ts, pp, x0, n, 1.5, 260.0, z_window=z_window)
+
+        got = _sums_value_and_grads(slab, cols, tp, g)
+        again = _sums_value_and_grads(slab, cols, tp, g)
+        for a, b in zip(got, again):  # no atomics: identical run to run
+            assert torch.equal(a, b)
+        want = _sums_value_and_grads(
+            lambda ts, pp: slab(ts, pp, K.implicit_sums_slab_emulated),
+            cols, tp, g)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+        plain = _sums_value_and_grads(  # full sweep, no z window
+            lambda ts, pp, x0=x0: K.implicit_sums_slab_plain(
+                ts, pp, x0, n, 1.5, 260.0), cols, tp, g)
+        # relative to the sample's whole-plane sum: a slab's own sum is a
+        # sum of near-cancelling terms
+        assert float(((got[0] - plain[0]).abs() / full[0].abs()).max()) \
+            <= 1e-5
+        for ref in (want, plain):
+            np.testing.assert_allclose(got[1].cpu().numpy(),
+                                       ref[1].cpu().numpy(), rtol=5e-3,
+                                       atol=grad_atol(ref[1].cpu().numpy()))
+            torch.testing.assert_close(got[2], ref[2], rtol=1e-4, atol=0)
+        parts.append(got)
+    slabs = -(-n // n_cols)
+    assert (K.slab_fwd_launches, K.slab_bwd_launches) == (2 * slabs,
+                                                          2 * slabs)
+    assert (K.fwd_launches, K.bwd_launches) == (1, 1)
+    torch.testing.assert_close(sum(s for s, _, _ in parts), full[0],
+                               rtol=1e-5, atol=0)
+    full_grad = full[1].cpu().numpy()
+    np.testing.assert_allclose(sum(gp for _, gp, _ in parts).cpu().numpy(),
+                               full_grad, rtol=5e-3,
+                               atol=grad_atol(full_grad))
+    torch.testing.assert_close(torch.cat([gi for _, _, gi in parts], -1),
+                               full[2], rtol=1e-4, atol=0)
 
 
 @pytest.mark.gpu

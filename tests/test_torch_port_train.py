@@ -240,7 +240,7 @@ def test_train_config_has_the_jax_fields_and_flags():
     ({"augment_randomize": True}, "Slice C2"),
     ({"pretrained": "r18.pt"}, "Slice F"),
     ({"init_base": "base.npz"}, "Slice D"), ({"freeze_base": True}, "Slice D"),
-    ({"n_grid": 2}, "Slice E"), ({"n_grid": 4}, "Slice E"),
+    ({"model": "resnet_sq6d"}, "Slice F"), ({"model": "classical"}, "Slice D"),
     ({"dtype": "bfloat16"}, "Slice F"), ({"profile_dir": "prof"}, "Slice F"),
     ({"data": "/data/bmps"}, "Slice C2"), ({"iso": True}, "Slice F"),
     ({"model": "refine_sq"}, "Slice D")])
