@@ -12,7 +12,7 @@
 //   K4: the same sum, and the gradient of the 17 frame scalars of pred
 //       (a, e, R(q*)·t, R(q*)) with gF = dd²/dF_p = 2 d sharp occ_p (1 − occ_p)
 //       through the dF chain the implicit-loss kernels share
-//       (sq_field.cuh frame_grad_step)
+//       (sq_field.cuh frame_grad_step), summed per column (sep_grad_step)
 //
 // The wrapper scales the sums by 100/(N+1)³ and applies the upstream
 // cotangent, a scalar per sample, to K4's gradient; the true side gets no
@@ -20,26 +20,73 @@
 // parameters carry in slots 17-18 (the union of both shapes' z windows, or
 // the full [0, N]).
 //
-// Design. One thread per (x, y) lattice column of one sample; the grid is
-// (column blocks, batch), with (N+1)² columns per sample. A block reads its
-// sample's two 24-float parameter rows into shared memory once; each thread
-// loops over its sample's window with the squared-difference sum (K5) or the
-// sum and 17 gradient accumulators (K4) in registers. The TPU kernel's
-// 128-lane padding, its validity mask, its tiling of several samples per
-// program and its 256-sample chunks (limits of the TPU's vector and scalar
-// memories) have no counterpart: one launch covers any batch. Reductions are
-// deterministic, as in implicit.cu: a fixed shuffle tree inside each warp,
-// the warps in order into a (batch, blocks[, 17]) partial buffer, then
-// sum_partials in block order. No float atomics, so two runs give the same
-// bits.
+// K5's design. One thread per (x, y) lattice column of one sample; the
+// grid is (column blocks, batch), with (N+1)² columns per sample. A block
+// reads its sample's two 24-float parameter rows into shared memory once;
+// each thread loops over its sample's window with the squared-difference
+// sum in a register. The TPU kernel's 128-lane padding, its validity mask,
+// its tiling of several samples per program and its 256-sample chunks
+// (limits of the TPU's vector and scalar memories) have no counterpart: one
+// launch covers any batch. Reductions are deterministic, as in implicit.cu:
+// a fixed shuffle tree inside each warp, the warps in order into a (batch,
+// blocks[, 17]) partial buffer, then sum_partials in block order. No float
+// atomics, so two runs give the same bits.
 //
-// What bounds it on this card: operations. Per in-window point K5 evaluates
-// two fields (11 logf/expf each, with the sigmoids) and K4 adds the 17-term
-// gradient chain (4 more expf, about 20 divisions); the bytes are two
-// (B, 24) parameter rows in and B or B·24 floats out. This is the simple
-// version that is right first: accurate logf/expf (no fast-math, for parity
-// with the reference), no sharing of work between columns or planes. Making
-// it fast is later work.
+// What bounds them on this card: operations. Per in-window point K5
+// evaluates two fields (11 logf/expf each, with the sigmoids) and K4 adds
+// the 17-term gradient chain (4 more expf); the bytes are two (B, 24)
+// parameter rows in and B or B·24 floats out. Accurate logf/expf (no
+// fast-math, for parity with the reference) in both.
+//
+// K4's design for this card (the first port, K5's design with the shared
+// frame_grad_step, took 36 ms on one H100 at the c4c shape: 91 registers,
+// about 31 IEEE divisions a point, 2 blocks a SM):
+// * Per-sample constants once. The block prologue computes both rows'
+//   reciprocals and slopes (sq_field.cuh make_recip) into shared memory;
+//   the per-point chain (field_terms_lin, sep_grad_step) multiplies by
+//   them and divides only in the two sigmoids.
+// * Body coordinates linear in z along a column: u = u0 + cu·z.
+// * Separable sums: 11 running sums a column (SepAcc) instead of 17,
+//   scaled by X/a, Y/a and −1/a once at the column's end (sep_finish),
+//   before the same fixed-order reduction.
+// * The exact-zero cull (below): a column sweeps only the planes where a
+//   point can add anything.
+// * A warp is an 8 × 4 tile of columns and a block a 16 × 16 tile (2 × 4
+//   warps), so that a warp's columns, and a block's, have similar z
+//   intervals; __launch_bounds__(256, 4) caps a thread at 64 registers for
+//   4 blocks a SM.
+//
+// The exact-zero cull. In exact arithmetic F ≥ max(x2g, y2g, z2g) ≥
+// max(u², v², w²) for every e > 0 (each power is monotone, every term is
+// non-negative). Where sharp·(F − 1) > 88.73 > ln(FLT_MAX) = 88.7228, expf
+// overflows and the occupancy 1/(1 + expf(.)) is exactly 0.0f. Where both
+// shapes' occupancies are 0 at a point, d = 0 and gF = 2·d·sharp·occ_p·(1 −
+// occ_p) = 0, and every gradient term is gF times a finite number (the dF
+// terms and ex_le are clamped at e^30, min_nan clamps F, lg and lh are
+// finite: below), so the point adds ±0 to every sum and skipping it
+// changes no bit. So each column sweeps only the planes of its window
+// where |u|, |v| and |w| ≤ bb for the true OR the pred frame (the hull of
+// the two z intervals), with
+//     bb² = 1.05 · (1 + 88.73/sharp).
+// The 5% margin covers the float chain's rounding: every log-domain value
+// stays below 87.7 in magnitude (below), each logf, expf and product adds
+// a few 2^-24 of it, and e2/e1 ≤ 10, e1 ≤ 1 amplify that to well under
+// 1e-3 of F; the interval's own rounding (|u0|, |cu| ≤ 70 in float) and
+// the lattice's z_j = j·fl(1/N) move |u| by under 1e-4. Half the margin
+// would do.
+//
+// The cull runs only for a sample whose two rows prove those bounds
+// (cull_sound): every value finite, a ≥ 0.05, e1 and e2 in [0.1, 1], and
+// log(S)/min(e1, e2) ≤ 87, where S bounds x2g + y2g and z2g over the unit
+// cube: |(u·a1, v·a2, w·a3)| = |R·p − t_rot| ≤ ‖R‖₂·√3 + |t_rot| = D for p
+// in [0, 1]³, so u² + v² ≤ D²/min(a1, a2)² and w² ≤ D²/a3². As 1/e2 ≥ 1,
+// A + B ≤ (x2g + y2g)^(1/e2), so lg ≤ log(S)/e2 and log E ≤ log(S)/e1,
+// log C ≤ log(S)/e1, and lh ≤ ln 2 + 87 < 88.72: nothing overflows. Rows
+// of clamped params (a ≥ 0.05, e in [0.1, 1], t in [0, 1]³, a rotation)
+// give D ≤ 2√3 and log(S)/min(e) ≤ 84.8, so every sample the wrapper
+// packs is culled; any other sample sweeps its whole window.
+
+#include <float.h>
 
 #include "sq_field.cuh"
 
@@ -109,37 +156,135 @@ explicit_fwd_kernel(const float* __restrict__ par_t,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ---- K4 -------------------------------------------------------------------
+
+constexpr int kFusedMinBlocks = 4;  // blocks a SM: 64 registers a thread
+constexpr int kBlockTile = 16;      // a block's columns: 16 × 16
+constexpr float kExpOverflow = 88.73f;  // > ln(FLT_MAX) = 88.7228
+constexpr float kCullMargin = 1.05f;
+constexpr float kFiniteLog = 87.0f;     // + ln 2 < ln(FLT_MAX)
+
+// Whether a frame row proves the cull's bounds (see the top of the file).
+__device__ bool cull_sound(const float* p) {
+  for (int i = 0; i < kNPar; ++i) {
+    if (!isfinite(p[i])) return false;
+  }
+  const float a1 = p[0], a2 = p[1], a3 = p[2], e1 = p[3], e2 = p[4];
+  if (!(fminf(a1, fminf(a2, a3)) >= 0.05f)) return false;
+  if (!(e1 >= 0.1f && e1 <= 1.0f && e2 >= 0.1f && e2 <= 1.0f)) return false;
+  const float* r = p + 8;
+  float g2 = 0.0f;  // ‖R‖₂² ≤ the largest row sum of |RᵀR|
+  for (int i = 0; i < 3; ++i) {
+    float row = 0.0f;
+    for (int j = 0; j < 3; ++j) {
+      row += fabsf(r[i] * r[j] + r[3 + i] * r[3 + j] + r[6 + i] * r[6 + j]);
+    }
+    g2 = fmaxf(g2, row);
+  }
+  const float d = sqrtf(g2) * 1.7320509f +
+                  sqrtf(p[5] * p[5] + p[6] * p[6] + p[7] * p[7]);
+  const float amin = fminf(a1, a2);
+  const float s = fmaxf(d * d / (amin * amin) + 2e-4f, d * d / (a3 * a3) +
+                        1e-4f);
+  return logf(s) <= kFiniteLog * fminf(e1, e2);
+}
+
+// Narrow [zl, zu] to the z where |u0 + c·z| ≤ bb, given ic = 1/c.
+__device__ __forceinline__ void clip_axis(float u0, float ic, float bb,
+                                          float& zl, float& zu) {
+  if (!(fabsf(ic) <= FLT_MAX)) {  // c is 0 or subnormal: u = u0 at every z
+    if (!(fabsf(u0) <= bb)) {
+      zl = INFINITY;
+      zu = -INFINITY;
+    }
+    return;
+  }
+  const float za = (-bb - u0) * ic, zb = (bb - u0) * ic;
+  zl = fmaxf(zl, fminf(za, zb));
+  zu = fminf(zu, fmaxf(za, zb));
+}
+
+// The lattice planes [j0, j1] whose z (z_0 = 1e-4, z_j = j/N) lies in the
+// z interval where one frame's |u|, |v|, |w| ≤ bb; j0 > j1 when none.
+__device__ __forceinline__ void box_planes(const Recip& k, float u0,
+                                           float v0, float w0, float bb,
+                                           int n, int& j0, int& j1) {
+  float zl = -INFINITY, zu = INFINITY;
+  clip_axis(u0, k.icu, bb, zl, zu);
+  clip_axis(v0, k.icv, bb, zl, zu);
+  clip_axis(w0, k.icw, bb, zl, zu);
+  const float fn = (float)n;
+  j0 = zl <= 1e-4f ? 0 : (int)ceilf(fminf(zl * fn, fn + 1.0f));
+  j1 = zu < 1e-4f ? -1 : (int)floorf(fminf(zu * fn, fn));
+}
+
+__global__ void __launch_bounds__(kThreads, kFusedMinBlocks)
 explicit_fused_kernel(const float* __restrict__ par_t,
                       const float* __restrict__ par_p,
                       float* __restrict__ partial_sum,
                       float* __restrict__ partial_grad, int n, float sharp) {
   __shared__ float st[kParStride], sp[kParStride];
+  __shared__ Recip kr[2];
+  __shared__ float s_bb;  // the cull's box half-width; 0: no cull
   __shared__ float red[kNPar + 1][kWarps];
   const int b = blockIdx.y;
   load_rows(par_t, par_p, st, sp, b);
+  if (threadIdx.x < 2) kr[threadIdx.x] = make_recip(threadIdx.x ? sp : st);
+  if (threadIdx.x == 2) {
+    const bool ok = sharp > 0.0f && sharp <= FLT_MAX && cull_sound(st) &&
+                    cull_sound(sp);
+    s_bb = ok ? sqrtf(kCullMargin * (1.0f + kExpOverflow / sharp)) : 0.0f;
+  }
+  __syncthreads();
+  const Recip& kt = kr[0];
+  const Recip& kp = kr[1];
   const int lo = (int)sp[kSlotJLo], hi = (int)sp[kSlotJHi];
   const float inv = (float)(1.0 / (double)n);
-  const Column c = column(n, inv);
+
+  // this thread's column: warps are 8 × 4 tiles, 2 × 4 of them a block
+  const int m = n + 1;
+  const int tiles = (m + kBlockTile - 1) / kBlockTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int xi = (blockIdx.x % tiles) * kBlockTile + (warp & 1) * 8 +
+                 (lane & 7);
+  const int yi = (blockIdx.x / tiles) * kBlockTile + (warp >> 1) * 4 +
+                 (lane >> 3);
+  const float X = coord(xi, inv), Y = coord(yi, inv);
 
   float sum = 0.0f;
-  float acc[kNPar];
-#pragma unroll
-  for (int i = 0; i < kNPar; ++i) acc[i] = 0.0f;
-  if (c.live) {
-    const Frame ft = load_frame(st), fp = load_frame(sp);
-    for (int j = lo; j <= hi; ++j) {
+  SepAcc s = {};
+  if (xi < m && yi < m) {
+    const float u0t = (st[8] * X + st[9] * Y - st[5]) * kt.ia1;
+    const float v0t = (st[11] * X + st[12] * Y - st[6]) * kt.ia2;
+    const float w0t = (st[14] * X + st[15] * Y - st[7]) * kt.ia3;
+    const float u0p = (sp[8] * X + sp[9] * Y - sp[5]) * kp.ia1;
+    const float v0p = (sp[11] * X + sp[12] * Y - sp[6]) * kp.ia2;
+    const float w0p = (sp[14] * X + sp[15] * Y - sp[7]) * kp.ia3;
+    int j0 = lo, j1 = hi;
+    const float bb = s_bb;
+    if (bb > 0.0f) {
+      int jt0, jt1, jp0, jp1;
+      box_planes(kt, u0t, v0t, w0t, bb, n, jt0, jt1);
+      box_planes(kp, u0p, v0p, w0p, bb, n, jp0, jp1);
+      j0 = max(lo, min(jt0, jp0));
+      j1 = min(hi, max(jt1, jp1));
+    }
+    for (int j = j0; j <= j1; ++j) {
       const float z = coord(j, inv);
-      const float occ_t = occupancy(field_terms(ft, c.X, c.Y, z).F, sharp);
-      const Terms t = field_terms(fp, c.X, c.Y, z);
+      const float occ_t = occupancy(
+          field_terms_lin(kt, u0t + kt.cu * z, v0t + kt.cv * z,
+                          w0t + kt.cw * z).F, sharp);
+      const Terms t = field_terms_lin(kp, u0p + kp.cu * z, v0p + kp.cv * z,
+                                      w0p + kp.cw * z);
       const float occ_p = occupancy(t.F, sharp);
       const float d = occ_t - occ_p;
       sum += d * d;
       const float gF = 2.0f * d * sharp * occ_p * (1.0f - occ_p);
-      frame_grad_step(acc, t, gF, fp, c.X, c.Y, z);
+      sep_grad_step(s, t, gF, kp, z);
     }
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float acc[kNPar];
+  sep_finish(acc, s, kp, X, Y);
 #pragma unroll
   for (int i = 0; i < kNPar; ++i) {
     const float v = warp_sum(acc[i]);
@@ -149,15 +294,20 @@ explicit_fused_kernel(const float* __restrict__ par_t,
   if (lane == 0) red[kNPar][warp] = sum;
   __syncthreads();
   if (threadIdx.x <= kNPar) {
-    float s = 0.0f;
-    for (int k = 0; k < kWarps; ++k) s += red[threadIdx.x][k];
+    float t = 0.0f;
+    for (int k = 0; k < kWarps; ++k) t += red[threadIdx.x][k];
     const size_t blk = (size_t)b * gridDim.x + blockIdx.x;
     if (threadIdx.x < kNPar) {
-      partial_grad[blk * kNPar + threadIdx.x] = s;
+      partial_grad[blk * kNPar + threadIdx.x] = t;
     } else {
-      partial_sum[blk] = s;
+      partial_sum[blk] = t;
     }
   }
+}
+
+int fused_blocks(int n) {
+  const int tiles = (n + 1 + kBlockTile - 1) / kBlockTile;
+  return tiles * tiles;
 }
 
 int blocks_per_sample(int n) {
@@ -168,8 +318,10 @@ int blocks_per_sample(int n) {
 
 extern "C" {
 
-// Thread blocks per sample: the width of the wrapper's partial buffers.
+// Thread blocks per sample of K5 and of K4: the widths of the wrapper's
+// partial buffers.
 int sqtpu_explicit_blocks(int n) { return blocks_per_sample(n); }
+int sqtpu_explicit_fused_blocks(int n) { return fused_blocks(n); }
 
 // K5. par_t, par_p: (batch, 24), partial: (batch, blocks), sums: (batch,),
 // all float32 on the device. Launches on `stream`; returns the first
@@ -189,13 +341,14 @@ int sqtpu_explicit_fwd(const void* par_t, const void* par_p, void* partial,
   return (int)cudaGetLastError();
 }
 
-// K4. partial_sum: (batch, blocks), partial_grad: (batch, blocks, 17),
-// sums: (batch,), dpar: (batch, 24) with slots 17-23 written as 0.
+// K4. partial_sum: (batch, fused blocks), partial_grad: (batch, fused
+// blocks, 17), sums: (batch,), dpar: (batch, 24) with slots 17-23 written
+// as 0.
 int sqtpu_explicit_fused(const void* par_t, const void* par_p,
                          void* partial_sum, void* partial_grad, void* sums,
                          void* dpar, int batch, int n, double sharp,
                          void* stream) {
-  const int blocks = blocks_per_sample(n);
+  const int blocks = fused_blocks(n);
   cudaStream_t s = (cudaStream_t)stream;
   explicit_fused_kernel<<<dim3(blocks, batch), kThreads, 0, s>>>(
       (const float*)par_t, (const float*)par_p, (float*)partial_sum,

@@ -160,4 +160,128 @@ __global__ void sum_partials(const float* __restrict__ partial,
   out[t] = s;
 }
 
+// ---------------------------------------------------------------------------
+// K4's chain (explicit.cu explicit_fused_kernel): the field and gradient
+// above, with every divisor replaced by a reciprocal computed once per
+// sample and the body coordinates linear in z along a lattice column.
+// ---------------------------------------------------------------------------
+
+// Per-sample constants of one frame row.
+struct Recip {
+  float ia1, ia2, ia3;  // 1/a
+  float cu, cv, cw;     // slopes in z of u, v, w: R[., 2]/a
+  float icu, icv, icw;  // 1/cu, 1/cv, 1/cw (the cull's z interval)
+  float e1, e2, ie1, ie2, e21;
+  float e1m1, e21m1, ie1m1, ie2m1;  // e1 − 1, e2/e1 − 1, 1/e1 − 1, 1/e2 − 1
+};
+
+__device__ __forceinline__ Recip make_recip(const float* p) {
+  Recip k;
+  k.ia1 = 1.0f / p[0];
+  k.ia2 = 1.0f / p[1];
+  k.ia3 = 1.0f / p[2];
+  k.cu = p[10] * k.ia1;
+  k.cv = p[13] * k.ia2;
+  k.cw = p[16] * k.ia3;
+  k.icu = 1.0f / k.cu;
+  k.icv = 1.0f / k.cv;
+  k.icw = 1.0f / k.cw;
+  k.e1 = p[3];
+  k.e2 = p[4];
+  k.ie1 = 1.0f / k.e1;
+  k.ie2 = 1.0f / k.e2;
+  k.e21 = k.e2 / k.e1;
+  k.e1m1 = k.e1 - 1.0f;
+  k.e21m1 = k.e21 - 1.0f;
+  k.ie1m1 = k.ie1 - 1.0f;
+  k.ie2m1 = k.ie2 - 1.0f;
+  return k;
+}
+
+// field_terms on body coordinates the caller computed (u = u0 + cu·z).
+__device__ __forceinline__ Terms field_terms_lin(const Recip& k, float u,
+                                                 float v, float w) {
+  Terms t;
+  t.u = u;
+  t.v = v;
+  t.w = w;
+  t.x2g = guard(u * u);
+  t.y2g = guard(v * v);
+  t.z2g = guard(w * w);
+  t.lx = logf(t.x2g);
+  t.ly = logf(t.y2g);
+  t.lz = logf(t.z2g);
+  const float A = expf(t.lx * k.ie2);
+  const float B = expf(t.ly * k.ie2);
+  const float C = expf(t.lz * k.ie1);
+  t.lg = logf(A + B + kTiny);
+  const float E = expf(t.lg * k.e21);
+  t.lh = logf(E + C + kTiny);
+  t.F = expf(t.lh * k.e1);
+  return t;
+}
+
+// The gradient of frame_grad_step, summed along one column. Per axis the
+// rotation and translation terms factor: acc[5] = −Σgx/a1 and acc[8..10]
+// = Σgx·(X, Y, z)/a1, with X, Y and 1/a1 constant along the column, so
+// Σg and Σg·z carry all four; the size terms need Σg·u. With the two
+// exponent terms, 11 running sums stand for the 17.
+struct SepAcc {
+  float gu, gv, gw;     // Σ gx·u, Σ gy·v, Σ gz·w
+  float de1, de2;       // the e1 and e2 terms
+  float gx, gy, gz;     // Σ gx, Σ gy, Σ gz
+  float gxz, gyz, gzz;  // Σ gx·z, Σ gy·z, Σ gz·z
+};
+
+__device__ __forceinline__ void sep_grad_step(SepAcc& s, const Terms& t,
+                                              float gF, const Recip& k,
+                                              float z) {
+  const float lfh = k.e1m1 * t.lh;
+  const float lxy = lfh + k.e21m1 * t.lg;
+  const float dF_dx2 = ex(lxy + k.ie2m1 * t.lx);
+  const float dF_dy2 = ex(lxy + k.ie2m1 * t.ly);
+  const float dF_dz2 = ex(lfh + k.ie1m1 * t.lz);
+  const float gx = gF * dF_dx2 * 2.0f * t.u;
+  const float gy = gF * dF_dy2 * 2.0f * t.v;
+  const float gz = gF * dF_dz2 * 2.0f * t.w;
+  s.gu += gx * t.u;
+  s.gv += gy * t.v;
+  s.gw += gz * t.w;
+  const float ex_le = ex(lfh + k.e21 * t.lg);
+  s.de1 += gF * (min_nan(t.F, kExpClamp) * t.lh -
+                 (ex_le * t.lg * k.e2 + dF_dz2 * t.z2g * t.lz) * k.ie1);
+  s.de2 += gF * (ex_le * t.lg -
+                 (dF_dx2 * t.x2g * t.lx + dF_dy2 * t.y2g * t.ly) * k.ie2);
+  s.gx += gx;
+  s.gy += gy;
+  s.gz += gz;
+  s.gxz += gx * z;
+  s.gyz += gy * z;
+  s.gzz += gz * z;
+}
+
+// The 17 frame-scalar terms of one column from its running sums, in
+// frame_grad_step's order.
+__device__ __forceinline__ void sep_finish(float* acc, const SepAcc& s,
+                                           const Recip& k, float X,
+                                           float Y) {
+  acc[0] = -s.gu * k.ia1;
+  acc[1] = -s.gv * k.ia2;
+  acc[2] = -s.gw * k.ia3;
+  acc[3] = s.de1;
+  acc[4] = s.de2;
+  acc[5] = -s.gx * k.ia1;
+  acc[6] = -s.gy * k.ia2;
+  acc[7] = -s.gz * k.ia3;
+  acc[8] = s.gx * X * k.ia1;
+  acc[9] = s.gx * Y * k.ia1;
+  acc[10] = s.gxz * k.ia1;
+  acc[11] = s.gy * X * k.ia2;
+  acc[12] = s.gy * Y * k.ia2;
+  acc[13] = s.gyz * k.ia2;
+  acc[14] = s.gz * X * k.ia3;
+  acc[15] = s.gz * Y * k.ia3;
+  acc[16] = s.gzz * k.ia3;
+}
+
 }  // namespace

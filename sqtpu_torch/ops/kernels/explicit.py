@@ -29,15 +29,19 @@ the CUDA kernels take the whole batch in one launch. The JAX wrapper sends
 N < 8 to XLA; the CUDA kernels take every N ≥ 2 or raise.
 
 Beside the kernels, :func:`emulate_fwd` and :func:`emulate_fused` are a
-torch emulation of their own algorithm (same lattice, window and gradient
-chain), the analogue of Pallas interpret mode. The tests hold it against
-the JAX kernels in interpret mode and against autograd of the plain loss;
-on the card the kernels are held against it. The main path never calls it.
+torch emulation of their own algorithm, the analogue of Pallas interpret
+mode: K5's sweep with the shared field chain, and K4's with the per-sample
+reciprocals, the body coordinates linear in z, the 11 running sums a
+column and the exact-zero cull (``csrc/explicit.cu``). The tests hold it
+against the JAX kernels in interpret mode and against autograd of the
+plain loss; on the card the kernels are held against it. The main path
+never calls it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -46,13 +50,21 @@ from sqtpu_torch.ops import geometry
 from sqtpu_torch.ops import losses
 from sqtpu_torch.ops import quaternion as quat
 from sqtpu_torch.ops.kernels.implicit import (
-    MAX_BATCH, N_PAR, PAR_STRIDE, SLOT_JHI, SLOT_JLO, _field_terms,
-    _frame_grad_step, _occ, _raise_on, _sweep_setup, _zval, check_operand,
+    EXPCLAMP, MAX_BATCH, N_PAR, PAR_STRIDE, SLOT_JHI, SLOT_JLO, _ex,
+    _field_terms, _occ, _raise_on, _sweep_setup, _zval, check_operand,
     frame_params,
 )
 
 SHARP = 5.0      # the reference's occupancy sharpness
 Z_MARGIN = 0.08  # window margin at SHARP, normalized z units
+# K4's exact-zero cull (csrc/explicit.cu): exp overflows above log(max) of
+# the dtype (88.7228 in float32, 709.78 in float64), where the occupancy
+# 1/(1 + exp(sharp·(F − 1))) is exactly 0; a column sweeps the planes where
+# |u|, |v| or |w| ≤ sqrt(CULL_MARGIN·(1 + EXP_OVERFLOW/sharp)) for either
+# shape, on samples whose rows keep every log-domain value below FINITE_LOG.
+EXP_OVERFLOW = {torch.float32: 88.73, torch.float64: 709.79}
+FINITE_LOG = {torch.float32: 87.0, torch.float64: 707.0}
+CULL_MARGIN = 1.05
 
 # Launches of K4 and K5 since the last reset_launches(); each wrapper adds
 # one where it launches its kernel and nowhere else.
@@ -79,6 +91,8 @@ def _lib() -> ctypes.CDLL:
         lib.sqtpu_explicit_fused.restype = i32
         lib.sqtpu_explicit_blocks.argtypes = [i32]
         lib.sqtpu_explicit_blocks.restype = i32
+        lib.sqtpu_explicit_fused_blocks.argtypes = [i32]
+        lib.sqtpu_explicit_fused_blocks.restype = i32
         lib.sqtpu_error_string.argtypes = [i32]
         lib.sqtpu_error_string.restype = ctypes.c_char_p
         lib._sqtpu_typed = True
@@ -141,47 +155,227 @@ def pack_params(true_p: torch.Tensor, pred_p: torch.Tensor, n: int,
 # The emulation of the kernels' algorithm (the analogue of interpret mode)
 # ---------------------------------------------------------------------------
 
-def _sweep(par_t: torch.Tensor, par_p: torch.Tensor, n: int, sharp: float,
-           grad: bool):
-    """Both kernels' sweep in torch: the explicit lattice is the implicit
-    one with N+1 points a side (spacing 1/N). Returns the (B,) sums and,
-    with ``grad``, the (B, 24) frame gradient of pred (slots 17-23 zero)."""
-    sw = _sweep_setup(par_p, n + 1, n + 1)
-    pp_t = [par_t[:, i:i + 1] for i in range(N_PAR)]
-    total = torch.zeros_like(sw.X)
-    acc = [torch.zeros_like(sw.X) for _ in range(N_PAR)] if grad else None
-    for j in range(int(sw.lo.min()), int(sw.hi.max()) + 1):
-        active = (sw.lo <= j) & (j <= sw.hi)
-        z = _zval(j, sw.inv, par_p)
-        occ_t = _occ(_field_terms(pp_t, sw.X, sw.Y, z)["F"], sharp)
-        T = _field_terms(sw.pp, sw.X, sw.Y, z)
-        occ_p = _occ(T["F"], sharp)
-        d = occ_t - occ_p
-        total = total + torch.where(active, d * d, 0.0)
-        if grad:
-            gF = torch.where(active,
-                             2.0 * d * sharp * occ_p * (1.0 - occ_p), 0.0)
-            _frame_grad_step(acc, T, gF, sw.pp, sw.X, sw.Y, z)
-    sums = total.sum(dim=-1)
-    if not grad:
-        return sums
-    dpar = torch.zeros_like(par_p)
-    dpar[:, :N_PAR] = torch.stack([a.sum(dim=-1) for a in acc], dim=-1)
-    return sums, dpar
-
-
 def emulate_fwd(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
                 sharp: float) -> torch.Tensor:
     """K5's algorithm in torch: two (B, 24) rows -> (B,) sums of
-    (occ_t − occ_p)² over each sample's window; the dtype is the rows'."""
-    return _sweep(par_t, par_p, n, sharp, grad=False)
+    (occ_t − occ_p)² over each sample's window; the dtype is the rows'.
+    The explicit lattice is the implicit one with N+1 points a side
+    (spacing 1/N)."""
+    sw = _sweep_setup(par_p, n + 1, n + 1)
+    pp_t = [par_t[:, i:i + 1] for i in range(N_PAR)]
+    total = torch.zeros_like(sw.X)
+    for j in range(int(sw.lo.min()), int(sw.hi.max()) + 1):
+        active = (sw.lo <= j) & (j <= sw.hi)
+        z = _zval(j, sw.inv, par_p)
+        d = (_occ(_field_terms(pp_t, sw.X, sw.Y, z)["F"], sharp)
+             - _occ(_field_terms(sw.pp, sw.X, sw.Y, z)["F"], sharp))
+        total = total + torch.where(active, d * d, 0.0)
+    return total.sum(dim=-1)
+
+
+class _Recip(NamedTuple):
+    """K4's per-sample constants of one frame row (sq_field.cuh
+    ``make_recip``), each (B, 1)."""
+    ia: list    # 1/a1, 1/a2, 1/a3
+    c: list     # slopes of u, v, w in z: R[., 2]/a
+    ic: list    # their reciprocals
+    e1: torch.Tensor
+    e2: torch.Tensor
+    ie1: torch.Tensor
+    ie2: torch.Tensor
+    e21: torch.Tensor
+
+
+def _recip(par: torch.Tensor) -> _Recip:
+    ia = [1.0 / par[:, i:i + 1] for i in range(3)]
+    c = [par[:, k:k + 1] * ia[i] for i, k in enumerate((10, 13, 16))]
+    e1, e2 = par[:, 3:4], par[:, 4:5]
+    return _Recip(ia, c, [1.0 / x for x in c], e1, e2, 1.0 / e1, 1.0 / e2,
+                  e2 / e1)
+
+
+def _body_origin(par: torch.Tensor, k: _Recip, X, Y) -> list:
+    """u, v, w of each column at z = 0: (R[., :2]·(X, Y) − t_rot)/a."""
+    return [(par[:, 8 + 3 * i:9 + 3 * i] * X + par[:, 9 + 3 * i:10 + 3 * i]
+             * Y - par[:, 5 + i:6 + i]) * k.ia[i] for i in range(3)]
+
+
+def _field_terms_lin(k: _Recip, u, v, w) -> dict:
+    """K4's field chain (sq_field.cuh ``field_terms_lin``) on body
+    coordinates u, v, w."""
+    x2, y2, z2 = u * u, v * v, w * w
+    x2g = x2 + (x2 == 0).to(x2.dtype) * 1e-4
+    y2g = y2 + (y2 == 0).to(y2.dtype) * 1e-4
+    z2g = z2 + (z2 == 0).to(z2.dtype) * 1e-4
+    lx, ly, lz = torch.log(x2g), torch.log(y2g), torch.log(z2g)
+    tiny = torch.finfo(u.dtype).tiny
+    lg = torch.log(torch.exp(lx * k.ie2) + torch.exp(ly * k.ie2) + tiny)
+    lh = torch.log(torch.exp(lg * k.e21) + torch.exp(lz * k.ie1) + tiny)
+    return dict(u=u, v=v, w=w, x2g=x2g, y2g=y2g, z2g=z2g, lx=lx, ly=ly,
+                lz=lz, lg=lg, lh=lh, F=torch.exp(lh * k.e1))
+
+
+def _occupancy(F, sharp: float):
+    """The kernels' sigmoid, 1/(1 + exp(−sharp·(1 − F))): exactly 0 where
+    exp overflows."""
+    return 1.0 / (1.0 + torch.exp(-(sharp * (1.0 - F))))
+
+
+def _sep_grad_step(acc: dict, T: dict, gF, k: _Recip, z) -> None:
+    """Add one plane to a column's 11 running sums (sq_field.cuh
+    ``sep_grad_step``)."""
+    lfh = (k.e1 - 1.0) * T["lh"]
+    lxy = lfh + (k.e21 - 1.0) * T["lg"]
+    dF_dx2 = _ex(lxy + (k.ie2 - 1.0) * T["lx"])
+    dF_dy2 = _ex(lxy + (k.ie2 - 1.0) * T["ly"])
+    dF_dz2 = _ex(lfh + (k.ie1 - 1.0) * T["lz"])
+    g = [gF * dF_dx2 * 2.0 * T["u"], gF * dF_dy2 * 2.0 * T["v"],
+         gF * dF_dz2 * 2.0 * T["w"]]
+    ex_le = _ex(lfh + k.e21 * T["lg"])
+    lg, lh = T["lg"], T["lh"]
+    terms = {
+        "gu": g[0] * T["u"], "gv": g[1] * T["v"], "gw": g[2] * T["w"],
+        "de1": gF * (torch.clamp(T["F"], max=EXPCLAMP) * lh
+                     - (ex_le * lg * k.e2 + dF_dz2 * T["z2g"] * T["lz"])
+                     * k.ie1),
+        "de2": gF * (ex_le * lg - (dF_dx2 * T["x2g"] * T["lx"] + dF_dy2
+                                   * T["y2g"] * T["ly"]) * k.ie2),
+        "gx": g[0], "gy": g[1], "gz": g[2],
+        "gxz": g[0] * z, "gyz": g[1] * z, "gzz": g[2] * z,
+    }
+    for name, t in terms.items():
+        acc[name] = acc[name] + t
+
+
+def _sep_finish(acc: dict, k: _Recip, X, Y) -> list:
+    """A column's 17 frame-scalar terms from its running sums."""
+    ia1, ia2, ia3 = k.ia
+    return [-acc["gu"] * ia1, -acc["gv"] * ia2, -acc["gw"] * ia3,
+            acc["de1"], acc["de2"],
+            -acc["gx"] * ia1, -acc["gy"] * ia2, -acc["gz"] * ia3,
+            acc["gx"] * X * ia1, acc["gx"] * Y * ia1, acc["gxz"] * ia1,
+            acc["gy"] * X * ia2, acc["gy"] * Y * ia2, acc["gyz"] * ia2,
+            acc["gz"] * X * ia3, acc["gz"] * Y * ia3, acc["gzz"] * ia3]
+
+
+def cull_sound(par: torch.Tensor) -> torch.Tensor:
+    """(B,) whether a frame row proves the cull's bounds (csrc/explicit.cu
+    ``cull_sound``): finite, a ≥ 0.05, e in [0.1, 1], and log(S)/min(e) ≤
+    FINITE_LOG with S bounding x2g + y2g and z2g over the unit cube."""
+    p = par[:, :N_PAR]
+    a, e = p[:, :3], p[:, 3:5]
+    ok = (torch.isfinite(p).all(dim=-1) & (a.min(dim=-1).values >= 0.05)
+          & ((e >= 0.1) & (e <= 1.0)).all(dim=-1))
+    rot = torch.nan_to_num(p[:, 8:17]).reshape(-1, 3, 3)
+    g2 = (rot.transpose(-1, -2) @ rot).abs().sum(dim=-1).max(dim=-1).values
+    d = torch.sqrt(g2) * 1.7320509 + torch.linalg.vector_norm(
+        torch.nan_to_num(p[:, 5:8]), dim=-1)
+    amin = torch.minimum(a[:, 0], a[:, 1])
+    s = torch.maximum(d * d / (amin * amin) + 2e-4,
+                      d * d / (a[:, 2] * a[:, 2]) + 1e-4)
+    return ok & (torch.log(s) <= FINITE_LOG[par.dtype] * e.min(dim=-1).values)
+
+
+def box_half_width(sharp: float, dtype=torch.float32) -> torch.Tensor:
+    """The cull's box: sqrt(1.05·(1 + EXP_OVERFLOW/sharp))."""
+    one = torch.ones((), dtype=dtype)
+    return torch.sqrt(CULL_MARGIN * one * (1.0 + EXP_OVERFLOW[dtype] * one
+                                           / sharp))
+
+
+def _box_planes(k: _Recip, origin: list, bb, n: int):
+    """The planes [j0, j1] whose z lies in the interval where one frame's
+    |u|, |v|, |w| ≤ bb (csrc/explicit.cu ``box_planes``)."""
+    inf = origin[0].new_tensor(math.inf)
+    zl, zu = -inf, inf
+    for u0, ic in zip(origin, k.ic):
+        flat = ~(ic.abs() <= torch.finfo(ic.dtype).max)  # u = u0 at every z
+        za, zb = (-bb - u0) * ic, (bb - u0) * ic
+        out = ~(u0.abs() <= bb)
+        zl = torch.where(flat, torch.where(out, inf, zl),
+                         torch.maximum(zl, torch.minimum(za, zb)))
+        zu = torch.where(flat, torch.where(out, -inf, zu),
+                         torch.minimum(zu, torch.maximum(za, zb)))
+    fn = float(n)
+    j0 = torch.where(zl <= 1e-4, 0.0, torch.ceil(torch.clamp(zl * fn,
+                                                             max=fn + 1)))
+    j1 = torch.where(zu < 1e-4, -1.0, torch.floor(torch.clamp(zu * fn,
+                                                              max=fn)))
+    return j0.to(torch.int64), j1.to(torch.int64)
+
+
+class _Columns(NamedTuple):
+    X: torch.Tensor       # (B, (N+1)²) column coordinates
+    Y: torch.Tensor
+    inv: float
+    kt: _Recip
+    kp: _Recip
+    origin_t: list        # u, v, w at z = 0, each (B, (N+1)²)
+    origin_p: list
+    j0: torch.Tensor      # (B, (N+1)²) the planes each column sweeps
+    j1: torch.Tensor
+
+
+def _columns(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
+             sharp: float, cull: bool) -> _Columns:
+    """K4's per-sample constants, per-column body origins and planes: the
+    sample's window [j_lo, j_hi], cut by the exact-zero cull to the hull
+    of both shapes' boxes where the rows prove it sound."""
+    sw = _sweep_setup(par_p, n + 1, n + 1)
+    kt, kp = _recip(par_t), _recip(par_p)
+    ot = _body_origin(par_t, kt, sw.X, sw.Y)
+    op = _body_origin(par_p, kp, sw.X, sw.Y)
+    j0, j1 = sw.lo.expand_as(sw.X), sw.hi.expand_as(sw.X)
+    if cull:
+        bb = box_half_width(sharp, par_p.dtype).to(par_p.device)
+        jt0, jt1 = _box_planes(kt, ot, bb, n)
+        jp0, jp1 = _box_planes(kp, op, bb, n)
+        on = ((cull_sound(par_t) & cull_sound(par_p))[:, None]
+              & (0.0 < sharp < math.inf))
+        j0 = torch.where(on, torch.maximum(j0, torch.minimum(jt0, jp0)), j0)
+        j1 = torch.where(on, torch.minimum(j1, torch.maximum(jt1, jp1)), j1)
+    return _Columns(sw.X, sw.Y, sw.inv, kt, kp, ot, op, j0, j1)
 
 
 def emulate_fused(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
-                  sharp: float):
+                  sharp: float, cull: bool = True):
     """K4's algorithm in torch: -> the (B,) sums and the (B, 24) gradient
-    of each sum with respect to pred's frame scalars."""
-    return _sweep(par_t, par_p, n, sharp, grad=True)
+    of each sum with respect to pred's frame scalars (slots 17-23 zero).
+    ``cull=False`` sweeps each sample's whole window with the same
+    arithmetic (the cull skips only points that add exactly 0)."""
+    col = _columns(par_t, par_p, n, sharp, cull)
+    kt, kp = col.kt, col.kp
+    total = torch.zeros_like(col.X)
+    acc = {k: torch.zeros_like(col.X) for k in (
+        "gu", "gv", "gw", "de1", "de2", "gx", "gy", "gz", "gxz", "gyz",
+        "gzz")}
+    lo = int(col.j0.min()) if col.j0.numel() else 0
+    for j in range(lo, int(col.j1.max()) + 1):
+        active = (col.j0 <= j) & (j <= col.j1)
+        z = _zval(j, col.inv, par_p)
+        occ_t = _occupancy(_field_terms_lin(
+            kt, *[o + c * z for o, c in zip(col.origin_t, kt.c)])["F"],
+            sharp)
+        T = _field_terms_lin(kp, *[o + c * z for o, c in zip(col.origin_p,
+                                                             kp.c)])
+        occ_p = _occupancy(T["F"], sharp)
+        d = occ_t - occ_p
+        total = total + torch.where(active, d * d, 0.0)
+        gF = torch.where(active, 2.0 * d * sharp * occ_p * (1.0 - occ_p),
+                         0.0)
+        _sep_grad_step(acc, T, gF, kp, z)
+    dpar = torch.zeros_like(par_p)
+    dpar[:, :N_PAR] = torch.stack(
+        [t.sum(dim=-1) for t in _sep_finish(acc, kp, col.X, col.Y)], dim=-1)
+    return total.sum(dim=-1), dpar
+
+
+def cull_points(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
+                sharp: float) -> int:
+    """Lattice points K4 evaluates after the exact-zero cull: Σ over the
+    columns of the planes each sweeps (counted by the emulation)."""
+    col = _columns(par_t, par_p, n, sharp, True)
+    return int((col.j1 - col.j0 + 1).clamp(min=0).sum())
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +423,7 @@ def cuda_fused(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
     _check_operands(n, par_t, par_p)
     lib = _lib()
     b = par_p.shape[0]
-    blocks = lib.sqtpu_explicit_blocks(n)
+    blocks = lib.sqtpu_explicit_fused_blocks(n)
     dev = par_p.device
     partial_sum = torch.empty((b, blocks), dtype=torch.float32, device=dev)
     partial_grad = torch.empty((b, blocks, N_PAR), dtype=torch.float32,

@@ -191,8 +191,13 @@ def test_loss_only_sweep_where_nothing_is_differentiated():
     runs["grad"] = KE._sweep_loss(impl, true, p, 8, True, True, None, 5.0)
     runs["grad"].backward()
     assert calls == ["fwd", "fwd", "fused"]
-    assert runs["no_grad"].item() == runs["constant"].item() \
-        == runs["grad"].item()
+    assert runs["no_grad"].item() == runs["constant"].item()
+    # K4 multiplies by per-sample reciprocals where K5 divides: the same
+    # sum to rounding, held as the card's K5 against K4. The gap measured
+    # there at the c4c shape was 7.2e-7; a change that brings it near 1e-6
+    # is to be looked into, not met with a looser bound.
+    assert runs["grad"].item() == pytest.approx(runs["constant"].item(),
+                                                rel=1e-6)
     assert p.grad.abs().max() > 0
 
 
