@@ -97,9 +97,11 @@ PEAK_BYTES = 3.35e12       # HBM3, bytes/s
 # FLT_MIN (6), 4 logf, 4 products by the exponents, 4 expf, 2 adds for
 # A + B + FLT_MIN, 1 add for E + C, 1 compare = 28; plus 2 for the step
 # (z = z_hi - j*step, or mid = 0.5*(lo + hi)). The bound counts the tests
-# of the full sweep from z_hi (the TPU kernel's algorithm, the yardstick
-# of every PR); the tests the redesigned kernel makes, which skip the slabs
-# its ray-box interval rules out, give a second bound.
+# these inputs need: those the kernel makes, which skip the slabs its
+# ray-box interval rules out (no test there can be inside). The tests of
+# the full sweep from z_hi (the TPU kernel's algorithm) give a second
+# figure, `bound_ms_full_sweep`, the yardstick kept from version to
+# version.
 OPS_PER_TEST = 30
 
 # The implicit loss on the training path: TrainConfig's defaults and the
@@ -115,12 +117,25 @@ VALUE_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 5e-3, 1e-6
 IMG_GRAD_RTOL = 1e-4
 # fp32 operations per in-window (x, y, z) point, each logf/expf counted as
-# one, read off sqtpu_torch/csrc/implicit.cu: the field chain 49 (21 for
-# u, v, w; 9 squares and guards; 9 for the three powers; 10 for G, E, H, F);
-# K1 adds 10 (sigmoid 6, S, exp(-τS) 2, Tacc), K2 adds 17 (sigmoid 6, S,
-# T_j 2, V, W 2, gF 5) and the gradient chain's 108.
+# one, read off the first port's sqtpu_torch/csrc/implicit.cu, the
+# TPU kernels' chain: the field chain 49 (21 for u, v, w; 9 squares and
+# guards; 9 for the three powers; 10 for G, E, H, F); K1 adds 10 (sigmoid
+# 6, S, exp(-τS) 2, Tacc), K2 adds 17 (sigmoid 6, S, T_j 2, V, W 2, gF 5)
+# and the gradient chain's 108. The window's points at these counts give
+# `bound_ms_window`, the yardstick kept from version to version.
 OPS_K1 = 59
 OPS_K2 = 174
+# The redesigned K1/K2 make, per point they evaluate after the exact-zero
+# cull, 44 and 115 operations read off sqtpu_torch/csrc/implicit.cu and
+# sq_field.cuh: the field chain of 34 (u, v, w = u0 + c·z, 6; squares and
+# guards 9; the three powers by reciprocals 9; G, E, H, F 10), the
+# sigmoid 6, S, exp(-τS) 2 and the add into Tacc (K1: 44); K2 the same 34
+# and 6, S, T_j 2, V, W 2, gF 5, and the separable gradient step 64.
+# Every other point of the window has occupancy exactly 0.0f and moves no
+# output, so the cull's points at these counts are the work these inputs
+# need: K1's and K2's bound.
+OPS_K1_CULLED = 44
+OPS_K2_CULLED = 115
 KERNEL_SOURCES = ("hardrender", "implicit", "explicit")
 KERNEL_ENTRIES = ("hardrender_kernel", "implicit_fwd_kernel",
                   "implicit_bwd_kernel", "explicit_fwd_kernel",
@@ -140,7 +155,9 @@ PLAIN_CHUNK = 16
 # fp32 operations per in-window lattice point, each logf/expf counted as
 # one, read off sqtpu_torch/csrc/explicit.cu and sq_field.cuh: two field
 # chains (2 × 49) and two sigmoids (2 × 6), d, and d² into the sum (2):
-# K5 113; K4 adds gF (5) and the gradient chain (108): 226.
+# K5 113; K4 adds gF (5) and the gradient chain (108): 226. The window's
+# points at these counts give `bound_ms_window`, the yardstick kept from
+# version to version.
 OPS_K5 = 113
 OPS_K4 = 226
 # The redesigned K4 makes, per point it evaluates after the
@@ -148,8 +165,11 @@ OPS_K4 = 226
 # sq_field.cuh: two field chains of 34 (u, v, w = u0 + c·z, 6; squares and
 # guards 9; the three powers by reciprocals 9; G, E, H, F 10), two sigmoids
 # of 6, d and d² into the sum (3), gF (5) and the separable gradient step
-# (64). The cull's points at these ops give K4's second bound.
+# (64). Outside the cull's points d is exactly 0 and gF ±0, so these
+# points at these ops are the work these inputs need: K4's bound; K5's is
+# the same points at the value's part of the chain (152 - 5 - 64 = 83).
 OPS_K4_CULLED = 152
+OPS_K5_CULLED = OPS_K4_CULLED - 5 - 64
 # One explicit_sym train step, card (K4, windowed) against CPU (plain loss,
 # full sweep), c4 weights with remat, at batch 8 and 64³ so the CPU side
 # stays small: the loss relative 1e-3, the window's bound (the card's K4
@@ -277,8 +297,9 @@ def gray_levels_off(a, b) -> float:
 def phase_kernel(truths, dev) -> dict:
     """K3 against its plain version and the torch emulation of its
     algorithm on the card, at both sweep settings; twice, bit for bit; the
-    inside tests of the full sweep (the bound's yardstick) and of the
-    kernel's ray-box intervals; times and bounds at the eval setting."""
+    inside tests of the kernel's ray-box intervals (the bound) and of the
+    full sweep (the yardstick kept from version to version); times and
+    bounds at the eval setting."""
     import torch
 
     from sqtpu_torch.ops.kernels import hardrender as H
@@ -342,9 +363,10 @@ def phase_kernel(truths, dev) -> dict:
         tests, tests_full = int(tests.sum()), int(tests_full.sum())
         n_bytes = p.shape[0] * (24 * 4 + IMAGE * IMAGE * 4)
         bytes_ms = n_bytes / PEAK_BYTES * 1e3
-        ops_ms = tests_full * OPS_PER_TEST / PEAK_FP32_OPS * 1e3
-        made_ms = max(bytes_ms, tests * OPS_PER_TEST / PEAK_FP32_OPS * 1e3)
+        ops_ms = tests * OPS_PER_TEST / PEAK_FP32_OPS * 1e3
         bound_ms = max(bytes_ms, ops_ms)
+        full_ms = max(bytes_ms,
+                      tests_full * OPS_PER_TEST / PEAK_FP32_OPS * 1e3)
         progress(f"K3 ({n_sweep}, {n_bisect}) B={p.shape[0]} S={IMAGE}: "
                  f"off>1 level {off:.2e} ({round(off * n_pix)} pixels), "
                  f"max|err| {err:.4f}; against its emulation {emu_off} "
@@ -353,18 +375,18 @@ def phase_kernel(truths, dev) -> dict:
                  f"{float((gap > 0).double().mean()):.4f} of pixels); "
                  f"bit-identical twice; kernel {ms:.4f} ms (launch "
                  f"{launch_ms:.4f}, packing {pack_ms:.4f}), plain "
-                 f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-                 f"({tests_full} inside tests of the full sweep, "
-                 f"{tests_full / n_pix:.2f} a pixel); the kernel makes "
-                 f"{tests} ({tests / n_pix:.3f} a pixel, "
-                 f"{tests / tests_full:.4f} of them): bound {made_ms:.4f} ms")
+                 f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({tests} "
+                 f"inside tests the kernel makes, {tests / n_pix:.3f} a "
+                 f"pixel, {tests / tests_full:.4f} of the full sweep's "
+                 f"{tests_full}: {full_ms:.4f} ms)")
         setting = {"frac_pixels_off": off, "max_abs_err": err, "ms": ms,
                    "launch_ms": launch_ms, "pack_ms": pack_ms,
                    "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "pixels_off_emulation": emu_off,
                    "max_abs_err_emulation_unquantized": float(gap.max()),
                    "inside_tests_full_sweep": tests_full,
-                   "inside_tests_made": tests, "bound_ms_made": made_ms}
+                   "inside_tests_made": tests,
+                   "bound_ms_full_sweep": full_ms}
         if (n_sweep, n_bisect) == (EVAL_SWEEP, EVAL_BISECT):
             row = {**setting, "bound_by": "operations" if ops_ms >= bytes_ms
                    else "bytes"}
@@ -518,23 +540,40 @@ def check_close(what: str, got, want, rtol: float, atol: float) -> float:
     return float(err.max())
 
 
+def implicit_inputs(dev, seed: int):
+    """The ssl1 shape's inputs of phases 7 (seed 7) and 15 (seed 15):
+    LOSS_B sampled truths, their K3 images at the training sweep, pred =
+    truth + 0.02 noise (unit quaternions) and noise images."""
+    import torch
+
+    from sqtpu_torch.data.synthetic import sample_params
+    from sqtpu_torch.ops.kernels import render_hard_auto
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    truths = sample_params(LOSS_B, gen)
+    k3_imgs = render_hard_auto(truths, IMAGE, n_sweep=TRAIN_SWEEP,
+                               n_bisect=TRAIN_BISECT, quantize=True)
+    pred = truths + 0.02 * torch.randn((LOSS_B, 12), generator=gen,
+                                       device=dev)
+    pred = torch.cat([pred[:, :8], torch.nn.functional.normalize(
+        pred[:, 8:], dim=-1)], dim=-1)
+    noise_imgs = 0.05 + 0.85 * torch.rand((LOSS_B, IMAGE, IMAGE),
+                                          generator=gen, device=dev)
+    return truths, k3_imgs, pred, noise_imgs
+
+
 def phase_implicit(dev) -> tuple[dict, dict]:
     """K1 and K2 against the emulation of their algorithm and against the
     plain loss (autograd), at the training shape, windowed and full
     sweep; twice, bit for bit; then times and bounds."""
     import torch
 
-    from sqtpu_torch.data.synthetic import sample_params
     from sqtpu_torch.ops import losses
     from sqtpu_torch.ops.kernels import implicit as K
-    from sqtpu_torch.ops.kernels import render_hard_auto
     from sqtpu_torch.ops.render import render_depth_hard_batch
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(7)
-    truths = sample_params(LOSS_B, gen)
-    k3_imgs = render_hard_auto(truths, IMAGE, n_sweep=TRAIN_SWEEP,
-                               n_bisect=TRAIN_BISECT, quantize=True)
+    truths, k3_imgs, pred, noise_imgs = implicit_inputs(dev, 7)
     # K3 at the training path's batch, against its plain version
     off = gray_levels_off(k3_imgs, render_depth_hard_batch(
         truths, IMAGE, n_bisect=TRAIN_BISECT, quantize=True,
@@ -542,12 +581,6 @@ def phase_implicit(dev) -> tuple[dict, dict]:
     if not off < PIXEL_TOL:
         raise RuntimeError(f"K3 at B={LOSS_B}: {off:.2e} of pixels off by "
                            "more than one gray level")
-    pred = truths + 0.02 * torch.randn((LOSS_B, 12), generator=gen,
-                                       device=dev)
-    pred = torch.cat([pred[:, :8], torch.nn.functional.normalize(
-        pred[:, 8:], dim=-1)], dim=-1)
-    noise_imgs = 0.05 + 0.85 * torch.rand((LOSS_B, IMAGE, IMAGE),
-                                          generator=gen, device=dev)
 
     def plain(img, p, n, tau, sharp, z_window=True):
         return losses.implicit_loss(img, p, n, tau, sharp)
@@ -615,23 +648,29 @@ def phase_implicit(dev) -> tuple[dict, dict]:
     points = K.window_points(par, n, n)
     plane_bytes = LOSS_B * n * n * 4
     par_bytes = LOSS_B * K.PAR_STRIDE * 4
+    culled = K.cull_points(par, n, n, TAU, SHARP)
     rows = []
-    for name, ops_per, n_bytes, ms in (
-            ("K1", OPS_K1, par_bytes + 2 * plane_bytes + LOSS_B * 4, fwd_ms),
-            ("K2", OPS_K2, 2 * par_bytes + LOSS_B * 4 + 3 * plane_bytes,
-             bwd_ms)):
-        ops_ms = points * ops_per / PEAK_FP32_OPS * 1e3
+    for name, ops_per, window_ops, n_bytes, ms in (
+            ("K1", OPS_K1_CULLED, OPS_K1,
+             par_bytes + 2 * plane_bytes + LOSS_B * 4, fwd_ms),
+            ("K2", OPS_K2_CULLED, OPS_K2,
+             2 * par_bytes + LOSS_B * 4 + 3 * plane_bytes, bwd_ms)):
+        ops_ms = culled * ops_per / PEAK_FP32_OPS * 1e3
         bytes_ms = n_bytes / PEAK_BYTES * 1e3
+        window_ms = max(points * window_ops / PEAK_FP32_OPS * 1e3, bytes_ms)
         rows.append({"ms": ms, "plain_ms": plain_ms,
                      "bound_ms": max(ops_ms, bytes_ms),
                      "bound_by": "operations" if ops_ms >= bytes_ms
                      else "bytes", "library_ms": None,
-                     "in_window_points": points,
+                     "points_after_cull": culled, "in_window_points": points,
+                     "bound_ms_window": window_ms,
                      "emulation_fwd_bwd_ms": emu_ms})
         progress(f"{name} B={LOSS_B} N={n}: {ms:.4f} ms, bound "
-                 f"{max(ops_ms, bytes_ms):.4f} ms ({points} in-window "
-                 f"points, {points / (LOSS_B * n * n):.2f} per pixel, "
-                 f"{ops_per} ops each)")
+                 f"{max(ops_ms, bytes_ms):.4f} ms ({culled} points after "
+                 f"the exact-zero cull, {culled / points:.4f} of the "
+                 f"window's, {ops_per} ops each); the window's {points} "
+                 f"points ({points / (LOSS_B * n * n):.2f} per pixel) at "
+                 f"{window_ops} ops: {window_ms:.4f} ms")
     progress(f"plain fwd+bwd {plain_ms:.3f} ms, emulation fwd+bwd "
              f"{emu_ms:.3f} ms; worst rel value {worst['value']:.2e}, "
              f"worst |grad err| {worst['grad']:.2e}, worst |img grad err| "
@@ -872,30 +911,32 @@ def phase_explicit(dev) -> tuple[dict, dict]:
     culled = KE.cull_points(par_t, par_p, n, sharp)
     par_bytes = 2 * C4C_B * KE.PAR_STRIDE * 4
     rows = []
-    for name, ops_per, n_bytes, ms, plain_ms in (
-            ("K4", OPS_K4, par_bytes + C4C_B * 4 * (1 + KE.PAR_STRIDE),
-             fused_ms, plain_bwd_ms),
-            ("K5", OPS_K5, par_bytes + C4C_B * 4, fwd_ms, plain_fwd_ms)):
-        ops_ms = points * ops_per / PEAK_FP32_OPS * 1e3
+    for name, ops_per, window_ops, n_bytes, ms, plain_ms in (
+            ("K4", OPS_K4_CULLED, OPS_K4,
+             par_bytes + C4C_B * 4 * (1 + KE.PAR_STRIDE), fused_ms,
+             plain_bwd_ms),
+            ("K5", OPS_K5_CULLED, OPS_K5, par_bytes + C4C_B * 4, fwd_ms,
+             plain_fwd_ms)):
+        ops_ms = culled * ops_per / PEAK_FP32_OPS * 1e3
         bytes_ms = n_bytes / PEAK_BYTES * 1e3
+        window_ms = max(points * window_ops / PEAK_FP32_OPS * 1e3, bytes_ms)
         rows.append({"ms": ms, "plain_ms": plain_ms,
                      "bound_ms": max(ops_ms, bytes_ms),
                      "bound_by": "operations" if ops_ms >= bytes_ms
                      else "bytes", "library_ms": None,
                      "max_abs_err": worst["grad"],
                      "max_rel_err_value": worst["value"],
-                     "in_window_points": points,
+                     "points_after_cull": culled, "in_window_points": points,
+                     "bound_ms_window": window_ms,
                      "emulation_fused_ms": emu_ms})
         progress(f"{name} B={C4C_B} N={n}: {ms:.4f} ms, bound "
-                 f"{max(ops_ms, bytes_ms):.4f} ms ({points} in-window "
-                 f"points, {points / (C4C_B * (n + 1) ** 3):.3f} of the "
-                 f"lattice, {ops_per} ops each), plain {plain_ms:.3f} ms")
+                 f"{max(ops_ms, bytes_ms):.4f} ms ({culled} points after "
+                 f"the exact-zero cull, {culled / points:.4f} of the "
+                 f"window's, {ops_per} ops each); the window's {points} "
+                 f"points ({points / (C4C_B * (n + 1) ** 3):.3f} of the "
+                 f"lattice) at {window_ops} ops: {window_ms:.4f} ms; plain "
+                 f"{plain_ms:.3f} ms")
     rows[1]["max_rel_err_k5_vs_k4"] = worst["k5_vs_k4"]
-    made_ms = culled * OPS_K4_CULLED / PEAK_FP32_OPS * 1e3
-    rows[0].update(points_after_cull=culled, bound_ms_made=made_ms)
-    progress(f"K4 evaluates {culled} points after the exact-zero cull "
-             f"({culled / points:.4f} of the window's), {OPS_K4_CULLED} ops "
-             f"each: bound {made_ms:.4f} ms")
     progress(f"emulation of K4 {emu_ms:.3f} ms; worst rel value "
              f"{worst['value']:.2e}, worst |grad err| {worst['grad']:.2e}, "
              f"K5 vs K4 {worst['k5_vs_k4']:.2e}")
@@ -1265,23 +1306,11 @@ def phase_slab(dev) -> dict:
     slab of 32 columns."""
     import torch
 
-    from sqtpu_torch.data.synthetic import sample_params
     from sqtpu_torch.ops.image import nearest_resize
     from sqtpu_torch.ops.kernels import implicit as K
-    from sqtpu_torch.ops.kernels import render_hard_auto
 
     n = LOSS_N
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(15)
-    truths = sample_params(LOSS_B, gen)
-    k3_imgs = render_hard_auto(truths, IMAGE, n_sweep=TRAIN_SWEEP,
-                               n_bisect=TRAIN_BISECT, quantize=True)
-    pred = truths + 0.02 * torch.randn((LOSS_B, 12), generator=gen,
-                                       device=dev)
-    pred = torch.cat([pred[:, :8], torch.nn.functional.normalize(
-        pred[:, 8:], dim=-1)], dim=-1)
-    noise_imgs = 0.05 + 0.85 * torch.rand((LOSS_B, IMAGE, IMAGE),
-                                          generator=gen, device=dev)
+    _, k3_imgs, pred, noise_imgs = implicit_inputs(dev, 15)
     g = torch.full((LOSS_B,), 1.0 / (LOSS_B * n * n), device=dev)
 
     def run(fn, small):
@@ -1384,24 +1413,31 @@ def phase_slab(dev) -> dict:
     points = K.window_points(par, n, cols)
     plane_bytes = LOSS_B * n * cols * 4
     par_bytes = LOSS_B * K.PAR_STRIDE * 4
-    ops_ms = points * (OPS_K1 + OPS_K2) / PEAK_FP32_OPS * 1e3
+    culled = K.cull_points(par, n, cols, TAU, SHARP)
+    ops_ms = culled * (OPS_K1_CULLED + OPS_K2_CULLED) / PEAK_FP32_OPS * 1e3
     # K1: params and slab in, Tacc and sums out; K2: params, g, slab and
     # Tacc in, the cotangent and the params' gradient out
     n_bytes = (par_bytes + 2 * plane_bytes + LOSS_B * 4
                + 2 * par_bytes + LOSS_B * 4 + 3 * plane_bytes)
     bytes_ms = n_bytes / PEAK_BYTES * 1e3
     bound = max(ops_ms, bytes_ms)
+    window_ms = max(points * (OPS_K1 + OPS_K2) / PEAK_FP32_OPS * 1e3,
+                    bytes_ms)
     progress(f"K6 B={LOSS_B} N={n}, {cols} columns from 0: forward "
              f"{fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms, bound "
-             f"{bound:.4f} ms ({points} in-window points, "
-             f"{OPS_K1 + OPS_K2} ops each); plain slab fwd+bwd "
-             f"{plain_ms:.3f} ms; worst rel sum {worst['value']:.2e}, worst "
-             f"|grad err| {worst['grad']:.2e}, worst |img grad err| "
+             f"{bound:.4f} ms ({culled} points after the exact-zero cull, "
+             f"{culled / points:.4f} of the window's, "
+             f"{OPS_K1_CULLED + OPS_K2_CULLED} ops each); the window's "
+             f"{points} points at {OPS_K1 + OPS_K2} ops: {window_ms:.4f} "
+             f"ms; plain slab fwd+bwd {plain_ms:.3f} ms; worst "
+             f"rel sum {worst['value']:.2e}, worst |grad err| "
+             f"{worst['grad']:.2e}, worst |img grad err| "
              f"{worst['img_grad']:.2e}")
     return {"ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
             "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None, "in_window_points": points,
+            "library_ms": None, "points_after_cull": culled,
+            "in_window_points": points, "bound_ms_window": window_ms,
             "max_abs_err": worst["grad"],
             "max_rel_err_value": worst["value"],
             "max_abs_err_image_grad": worst["img_grad"]}
@@ -1694,11 +1730,15 @@ def main() -> int:
         {"name": "implicit_fwd", "route": "cuda",
          "source": "sqtpu_torch/csrc/implicit.cu",
          "replaces": "sqtpu/ops/kernels/implicit.py:277",
-         "launches": k1, **fwd_row},
+         "launches": k1,
+         "registers": ptxas_registers("implicit", "implicit_fwd_kernel"),
+         **fwd_row},
         {"name": "implicit_bwd", "route": "cuda",
          "source": "sqtpu_torch/csrc/implicit.cu",
          "replaces": "sqtpu/ops/kernels/implicit.py:317",
-         "launches": k2, **bwd_row},
+         "launches": k2,
+         "registers": ptxas_registers("implicit", "implicit_bwd_kernel"),
+         **bwd_row},
         {"name": "explicit_fused", "route": "cuda",
          "source": "sqtpu_torch/csrc/explicit.cu",
          "replaces": "sqtpu/ops/kernels/explicit.py:174",

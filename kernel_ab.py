@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
-"""A/B of the hard renderer (K3) and the explicit loss's fused kernel (K4)
-against another checkout's sources, on one card, in one process::
+"""A/B of the port's kernels against another checkout's sources, on one
+card, in one process::
 
     python3 kernel_ab.py [--other DIR]
 
 The inputs are ``chip_smoke.py``'s: phase 3's for K3 (the first BATCH
 recorded truths of ``runs/eval_c4c3`` at IMAGE², at the eval and the
-training sweep) and phase 11's for K4 (``explicit_inputs``, windowed, at
-EXPLICIT_N and EXPLICIT_SHARP). Times are ``chip_smoke.cuda_ms``. K3's
-wrapper (packing and launch), its packing alone and its launch alone on
-packed rows are timed; K4's launch alone. With ``--other DIR``, DIR's
-``sqtpu_torch/csrc`` sources are built with this checkout's nvcc flags
-into a temporary directory, their launches run in turns with this
-checkout's (other, this, this, other), and the outputs are compared: K3's
-images bit for bit, K4's sums and gradients relative. Prints one JSON line
-with the card's name and power limit.
+training sweep); phase 7's for K1 and K2 (``implicit_inputs(dev, 7)``,
+LOSS_B samples at LOSS_N, windowed, K3 images, the cotangent of the
+mean); phase 15's for K6 (``implicit_inputs(dev, 15)``, the first slab
+of SLAB_COLS[0] columns); phase 11's for K4 and K5 (``explicit_inputs``,
+windowed, at EXPLICIT_N and EXPLICIT_SHARP). Times are
+``chip_smoke.cuda_ms``. K3's wrapper (packing and launch), its packing
+alone and its launch alone on packed rows are timed; every other kernel's
+launch alone, K2 and K6's backward on this checkout's Tacc. With
+``--other DIR``, DIR's ``sqtpu_torch/csrc`` sources are built with this
+checkout's nvcc flags into a temporary directory, their launches run in
+turns with this checkout's (other, this, this, other), and the outputs
+are compared: K3's images bit for bit; K1's, K2's and K6's sums, Tacc and
+gradients relative (their arithmetic may differ); K4's and K5's outputs
+bit for bit (``identical``) and relative. Always, this checkout's
+``implicit.cu`` is also built with ``-DSQTPU_IMPLICIT_CULL=0`` (every
+pixel sweeps its whole window), and K1/K2 with the cull must give the
+bits of K1/K2 without it on phase 7's and phase 15's inputs, windowed and
+not, with a NaN cotangent and a NaN image pixel; else it raises. Prints
+one JSON line with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -30,65 +40,132 @@ import numpy as np
 import torch
 
 import chip_smoke as S
+from sqtpu_torch.ops.image import nearest_resize
 from sqtpu_torch.ops.kernels import _build
 from sqtpu_torch.ops.kernels import explicit as KE
 from sqtpu_torch.ops.kernels import hardrender as H
+from sqtpu_torch.ops.kernels import implicit as K
 
 
-def build_other(root: str, name: str, out_dir: str) -> ctypes.CDLL:
+BIND = {"hardrender": H.bind, "implicit": K.bind, "explicit": KE.bind}
+
+
+def build_lib(root: str, name: str, out_dir: str, tag: str,
+              *defines: str) -> ctypes.CDLL:
     """``root``'s ``sqtpu_torch/csrc/<name>.cu`` built with this
-    checkout's flags into ``out_dir``, loaded."""
-    out = os.path.join(out_dir, f"lib{name}_other.so")
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out,
-                    os.path.join(root, "sqtpu_torch", "csrc", name + ".cu")],
+    checkout's nvcc flags (and ``defines``) into ``out_dir``, loaded and
+    typed by this package's ``bind``."""
+    out = os.path.join(out_dir, f"lib{name}_{tag}.so")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, *defines, "-o",
+                    out, os.path.join(root, "sqtpu_torch", "csrc",
+                                      name + ".cu")],
                    check=True, capture_output=True,
                    timeout=_build.NVCC_TIMEOUT_S)
-    return ctypes.CDLL(out)
+    return BIND[name](ctypes.CDLL(out))
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+def k1_launch(lib, img_xy, par, n: int, n_cols: int):
+    """K1 of ``lib``: (B,) sums and the (B, n·n_cols) Tacc."""
+    return K._launch_fwd(img_xy, par, n, n_cols, S.TAU, S.SHARP, "K1", lib)
 
 
-def k3_launch(lib, par, s: int, n_sweep: int, n_bisect: int):
-    """One launch of a library's ``sqtpu_hardrender`` on packed rows."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.sqtpu_hardrender.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr]
-    lib.sqtpu_hardrender.restype = i32
-    b = par.shape[0]
-    out = torch.empty((b, s, s), dtype=torch.float32, device=par.device)
-    err = lib.sqtpu_hardrender(par.data_ptr(), out.data_ptr(), b, s,
-                               n_sweep, n_bisect, 1, _stream(par.device))
-    if err:
-        raise RuntimeError(f"sqtpu_hardrender returned {err}")
-    return out
+def k2_launch(lib, img_xy, par, tacc, g, n: int, n_cols: int):
+    """K2 of ``lib``: the (B, 24) gradient and the image cotangent."""
+    return K._launch_bwd(img_xy, par, tacc, g, n, n_cols, S.TAU, S.SHARP,
+                         "K2", lib)
 
 
-def k4_launch(lib, par_t, par_p, n: int, sharp: float):
-    """One launch of a library's ``sqtpu_explicit_fused``: (B,) sums and
-    (B, 24) gradient. Its partial buffers take the library's own width."""
-    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.sqtpu_explicit_fused.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32,
-                                         i32, f64, ptr]
-    lib.sqtpu_explicit_fused.restype = i32
-    width = (lib.sqtpu_explicit_fused_blocks
-             if hasattr(lib, "sqtpu_explicit_fused_blocks")
-             else lib.sqtpu_explicit_blocks)
-    width.argtypes, width.restype = [i32], i32
-    b, dev = par_p.shape[0], par_p.device
-    blocks = width(n)
-    partial_sum = torch.empty((b, blocks), dtype=torch.float32, device=dev)
-    partial_grad = torch.empty((b, blocks, KE.N_PAR), dtype=torch.float32,
-                               device=dev)
-    sums = torch.empty((b,), dtype=torch.float32, device=dev)
-    dpar = torch.empty((b, KE.PAR_STRIDE), dtype=torch.float32, device=dev)
-    err = lib.sqtpu_explicit_fused(
-        par_t.data_ptr(), par_p.data_ptr(), partial_sum.data_ptr(),
-        partial_grad.data_ptr(), sums.data_ptr(), dpar.data_ptr(), b, n,
-        sharp, _stream(dev))
-    if err:
-        raise RuntimeError(f"sqtpu_explicit_fused returned {err}")
-    return sums, dpar
+def mean_cotangent(par, n: int):
+    return torch.full((par.shape[0],), 1.0 / (par.shape[0] * n * n),
+                      device=par.device)
+
+
+def implicit_rows(pair: dict, img_xy, par, n: int, n_cols: int) -> dict:
+    """K1's and K2's launches in turns on one plane (or slab), and, with
+    another library, how far its outputs are from this one's."""
+    g = mean_cotangent(par, n)
+    _, tacc = k1_launch(pair["this"], img_xy, par, n, n_cols)
+    row = {"fwd_ms": in_turns({k: (lambda lib=lib: k1_launch(
+               lib, img_xy, par, n, n_cols)) for k, lib in pair.items()}),
+           "bwd_ms": in_turns({k: (lambda lib=lib: k2_launch(
+               lib, img_xy, par, tacc, g, n, n_cols))
+               for k, lib in pair.items()})}
+    if "other" in pair:
+        (sa, ta), (sb, tb) = (k1_launch(pair[k], img_xy, par, n, n_cols)
+                              for k in ("this", "other"))
+        (ga, ia), (gb, ib) = (k2_launch(pair[k], img_xy, par, tacc, g, n,
+                                        n_cols) for k in ("this", "other"))
+        rel = torch.where(sa == sb, 0.0, (sa - sb).abs() / sb.abs())
+        row.update(max_rel_sum=float(rel.max()),
+                   max_abs_tacc=float((ta - tb).abs().max()),
+                   max_abs_grad=float((ga - gb).abs().max()),
+                   max_grad=float(gb.abs().max()),
+                   image_grad_differ=int((ia != ib).sum()))
+    return row
+
+
+def same_bits(a, b) -> bool:
+    """Equal to the bit where finite or infinite, NaN at the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (torch.equal(na, nb) and torch.equal(a.view(torch.int32)[~na],
+                                                b.view(torch.int32)[~nb]))
+
+
+def cut_against_uncut(cut, uncut, img_xy, par, n: int, n_cols: int,
+                      g=None) -> dict:
+    """K1 then K2 of ``cut`` (this checkout's kernels) and of ``uncut``
+    (the same source built with the cull off) on the same inputs; raises
+    unless sums, Tacc, the gradient and the image cotangent are the same
+    bits. K2 of both runs on the cut side's Tacc. Returns the uncut
+    kernels' times."""
+    g = mean_cotangent(par, n) if g is None else g
+    sa, ta = k1_launch(cut, img_xy, par, n, n_cols)
+    sb, tb = k1_launch(uncut, img_xy, par, n, n_cols)
+    ga, ia = k2_launch(cut, img_xy, par, ta, g, n, n_cols)
+    gb, ib = k2_launch(uncut, img_xy, par, ta, g, n, n_cols)
+    for what, a, b in (("sums", sa, sb), ("Tacc", ta, tb),
+                       ("gradient", ga, gb), ("image cotangent", ia, ib)):
+        if not same_bits(a, b):
+            raise RuntimeError(f"the cut kernels' {what} differ from the "
+                               "uncut sweep's")
+    return {"uncut_fwd_ms": S.cuda_ms(lambda: k1_launch(
+                uncut, img_xy, par, n, n_cols)),
+            "uncut_bwd_ms": S.cuda_ms(lambda: k2_launch(
+                uncut, img_xy, par, ta, g, n, n_cols)),
+            "nan_outputs": int(torch.isnan(ga).sum() + torch.isnan(sa).sum())}
+
+
+def uncut_rows(cut, uncut, dev) -> dict:
+    """The cull against the uncut sweep, bit for bit: phase 7's inputs
+    (K3 and noise images, windowed and the full window), with a NaN
+    cotangent and a NaN image pixel, and phase 15's slab."""
+    n = S.LOSS_N
+    _, k3_imgs, pred, noise_imgs = S.implicit_inputs(dev, 7)
+    rows = {}
+    for img_name, imgs in (("k3", k3_imgs), ("noise", noise_imgs)):
+        for z_window in (True, False):
+            rows[f"{img_name}_{'window' if z_window else 'full'}"] = \
+                cut_against_uncut(cut, uncut, K.image_plane(imgs, n),
+                                  K.pack_params(pred, n, z_window), n, n)
+    par = K.pack_params(pred, n)
+    g = mean_cotangent(par, n)
+    g[3] = float("nan")
+    img_xy = K.image_plane(k3_imgs, n)
+    rows["nan_cotangent"] = cut_against_uncut(cut, uncut, img_xy, par, n, n,
+                                              g)
+    img_xy = img_xy.clone()
+    img_xy[5, n * n // 2 + n // 2] = float("nan")
+    rows["nan_pixel"] = cut_against_uncut(cut, uncut, img_xy, par, n, n)
+    if not (rows["nan_cotangent"]["nan_outputs"]
+            and rows["nan_pixel"]["nan_outputs"]):
+        raise RuntimeError("a NaN input gave no NaN output")
+    _, k3_imgs, pred, _ = S.implicit_inputs(dev, 15)
+    cols = S.SLAB_COLS[0]
+    rows["slab"] = cut_against_uncut(
+        cut, uncut, K.slab_plane(nearest_resize(
+            k3_imgs, (n, n))[:, :, :cols].contiguous()),
+        K.pack_params(pred, n, x0=0), n, cols)
+    return rows
 
 
 def in_turns(fns: dict) -> dict:
@@ -107,12 +184,17 @@ def main(argv=None) -> dict:
     ap.add_argument("--other", default="", help="root of another checkout")
     args = ap.parse_args(argv)
     dev = torch.device("cuda")
-    libs = {"hardrender": {"this": H._lib()}, "explicit": {"this": KE._lib()}}
+    libs = {"hardrender": {"this": H._lib()}, "implicit": {"this": K._lib()},
+            "explicit": {"this": KE._lib()}}
+    here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         if args.other:
             for name, pair in libs.items():
-                pair["other"] = build_other(args.other, name, tmp)
-        out = {"card": S.card_line(), "k3": {}, "k4": {}}
+                pair["other"] = build_lib(args.other, name, tmp, "other")
+        uncut = build_lib(here, "implicit", tmp, "uncut",
+                          "-DSQTPU_IMPLICIT_CULL=0")
+        out = {"card": S.card_line(), "k3": {}, "k4": {}, "k5": {},
+               "uncut": uncut_rows(libs["implicit"]["this"], uncut, dev)}
 
         with np.load(S.TRUTHS) as d:
             p = torch.as_tensor(d["true_params"][:S.BATCH].astype(np.float32),
@@ -121,32 +203,55 @@ def main(argv=None) -> dict:
         for n_sweep, n_bisect in ((S.EVAL_SWEEP, S.EVAL_BISECT),
                                   (S.TRAIN_SWEEP, S.TRAIN_BISECT)):
             par = H.pack_frames(p, n_sweep)
-            row = {"launch_ms": in_turns({k: (lambda lib=lib: k3_launch(
-                       lib, par, S.IMAGE, n_sweep, n_bisect))
+            row = {"launch_ms": in_turns({k: (lambda lib=lib: H._launch(
+                       par, S.IMAGE, n_sweep, n_bisect, True, lib))
                        for k, lib in k3.items()}),
                    "wrapper_ms": S.cuda_ms(lambda: H.render_depth_hard_cuda(
                        p, S.IMAGE, n_sweep, n_bisect)),
                    "pack_ms": S.cuda_ms(lambda: H.pack_frames(p, n_sweep))}
             if args.other:
-                a, b = (k3_launch(k3[k], par, S.IMAGE, n_sweep, n_bisect)
-                        for k in ("this", "other"))
+                a, b = (H._launch(par, S.IMAGE, n_sweep, n_bisect, True,
+                                  k3[k]) for k in ("this", "other"))
                 row["pixels_differ"] = int((a != b).sum())
             out["k3"][f"{n_sweep}/{n_bisect}"] = row
+
+        n = S.LOSS_N
+        _, k3_imgs, pred, _ = S.implicit_inputs(dev, 7)
+        out["k1_k2"] = implicit_rows(libs["implicit"], K.image_plane(
+            k3_imgs, n), K.pack_params(pred, n), n, n)
+        _, k3_imgs, pred, _ = S.implicit_inputs(dev, 15)
+        cols = S.SLAB_COLS[0]
+        out["k6"] = implicit_rows(
+            libs["implicit"], K.slab_plane(nearest_resize(
+                k3_imgs, (n, n))[:, :, :cols].contiguous()),
+            K.pack_params(pred, n, x0=0), n, cols)
 
         truths, pred = S.explicit_inputs(dev)
         n, sharp = S.EXPLICIT_N, S.EXPLICIT_SHARP
         par_t, par_p = KE.pack_params(truths, pred, n, True,
                                       KE.default_margin(sharp))
         k4 = libs["explicit"]
-        out["k4"]["launch_ms"] = in_turns({k: (lambda lib=lib: k4_launch(
-            lib, par_t, par_p, n, sharp)) for k, lib in k4.items()})
+        out["k4"]["launch_ms"] = in_turns({k: (
+            lambda lib=lib: KE._launch_fused(par_t, par_p, n, sharp, lib))
+            for k, lib in k4.items()})
+        out["k5"]["launch_ms"] = in_turns({k: (
+            lambda lib=lib: KE._launch_fwd(par_t, par_p, n, sharp, lib))
+            for k, lib in k4.items()})
         if args.other:
-            (sa, ga), (sb, gb) = (k4_launch(k4[k], par_t, par_p, n, sharp)
+            (sa, ga), (sb, gb) = (KE._launch_fused(par_t, par_p, n, sharp,
+                                                   k4[k])
                                   for k in ("this", "other"))
             out["k4"]["max_rel_sum"] = float(((sa - sb).abs()
                                               / sb.abs()).max())
             out["k4"]["max_abs_grad"] = float((ga - gb).abs().max())
             out["k4"]["max_grad"] = float(gb.abs().max())
+            out["k4"]["identical"] = bool(torch.equal(sa, sb)
+                                          and torch.equal(ga, gb))
+            s5a, s5b = (KE._launch_fwd(par_t, par_p, n, sharp, k4[k])
+                        for k in ("this", "other"))
+            out["k5"]["max_rel_sum"] = float(((s5a - s5b).abs()
+                                              / s5b.abs()).max())
+            out["k5"]["identical"] = bool(torch.equal(s5a, s5b))
         torch.cuda.synchronize()
     print(json.dumps(out), flush=True)
     return out

@@ -12,7 +12,7 @@
 //   K4: the same sum, and the gradient of the 17 frame scalars of pred
 //       (a, e, R(q*)·t, R(q*)) with gF = dd²/dF_p = 2 d sharp occ_p (1 − occ_p)
 //       through the dF chain the implicit-loss kernels share
-//       (sq_field.cuh frame_grad_step), summed per column (sep_grad_step)
+//       (sq_field.cuh), summed per column (sep_grad_step)
 //
 // The wrapper scales the sums by 100/(N+1)³ and applies the upstream
 // cotangent, a scalar per sample, to K4's gradient; the true side gets no
@@ -38,9 +38,9 @@
 // parameter rows in and B or B·24 floats out. Accurate logf/expf (no
 // fast-math, for parity with the reference) in both.
 //
-// K4's design for this card (the first port, K5's design with the shared
-// frame_grad_step, took 36 ms on one H100 at the c4c shape: 91 registers,
-// about 31 IEEE divisions a point, 2 blocks a SM):
+// K4's design for this card (the first port, K5's design with the JAX
+// kernel's 17-term chain, took 36 ms on one H100 at the c4c shape: 91
+// registers, about 31 IEEE divisions a point, 2 blocks a SM):
 // * Per-sample constants once. The block prologue computes both rows'
 //   reciprocals and slopes (sq_field.cuh make_recip) into shared memory;
 //   the per-point chain (field_terms_lin, sep_grad_step) multiplies by
@@ -56,37 +56,14 @@
 //   intervals; __launch_bounds__(256, 4) caps a thread at 64 registers for
 //   4 blocks a SM.
 //
-// The exact-zero cull. In exact arithmetic F ≥ max(x2g, y2g, z2g) ≥
-// max(u², v², w²) for every e > 0 (each power is monotone, every term is
-// non-negative). Where sharp·(F − 1) > 88.73 > ln(FLT_MAX) = 88.7228, expf
-// overflows and the occupancy 1/(1 + expf(.)) is exactly 0.0f. Where both
-// shapes' occupancies are 0 at a point, d = 0 and gF = 2·d·sharp·occ_p·(1 −
-// occ_p) = 0, and every gradient term is gF times a finite number (the dF
-// terms and ex_le are clamped at e^30, min_nan clamps F, lg and lh are
-// finite: below), so the point adds ±0 to every sum and skipping it
-// changes no bit. So each column sweeps only the planes of its window
-// where |u|, |v| and |w| ≤ bb for the true OR the pred frame (the hull of
-// the two z intervals), with
-//     bb² = 1.05 · (1 + 88.73/sharp).
-// The 5% margin covers the float chain's rounding: every log-domain value
-// stays below 87.7 in magnitude (below), each logf, expf and product adds
-// a few 2^-24 of it, and e2/e1 ≤ 10, e1 ≤ 1 amplify that to well under
-// 1e-3 of F; the interval's own rounding (|u0|, |cu| ≤ 70 in float) and
-// the lattice's z_j = j·fl(1/N) move |u| by under 1e-4. Half the margin
-// would do.
-//
-// The cull runs only for a sample whose two rows prove those bounds
-// (cull_sound): every value finite, a ≥ 0.05, e1 and e2 in [0.1, 1], and
-// log(S)/min(e1, e2) ≤ 87, where S bounds x2g + y2g and z2g over the unit
-// cube: |(u·a1, v·a2, w·a3)| = |R·p − t_rot| ≤ ‖R‖₂·√3 + |t_rot| = D for p
-// in [0, 1]³, so u² + v² ≤ D²/min(a1, a2)² and w² ≤ D²/a3². As 1/e2 ≥ 1,
-// A + B ≤ (x2g + y2g)^(1/e2), so lg ≤ log(S)/e2 and log E ≤ log(S)/e1,
-// log C ≤ log(S)/e1, and lh ≤ ln 2 + 87 < 88.72: nothing overflows. Rows
-// of clamped params (a ≥ 0.05, e in [0.1, 1], t in [0, 1]³, a rotation)
-// give D ≤ 2√3 and log(S)/min(e) ≤ 84.8, so every sample the wrapper
-// packs is culled; any other sample sweeps its whole window.
-
-#include <float.h>
+// The exact-zero cull (sq_field.cuh, shared with K1/K2): where both
+// shapes' occupancies are exactly 0.0f at a point, d = 0 and gF = 2·d·
+// sharp·occ_p·(1 − occ_p) = 0, so the point adds ±0 to every sum and
+// skipping it changes no bit. So each column sweeps only the planes of its
+// window where |u|, |v| and |w| ≤ bb for the true OR the pred frame (the
+// hull of the two z intervals, box_planes with the lattice's last index N),
+// for a sample whose two rows prove the bounds (cull_sound); any other
+// sample sweeps its whole window.
 
 #include "sq_field.cuh"
 
@@ -160,64 +137,6 @@ explicit_fwd_kernel(const float* __restrict__ par_t,
 
 constexpr int kFusedMinBlocks = 4;  // blocks a SM: 64 registers a thread
 constexpr int kBlockTile = 16;      // a block's columns: 16 × 16
-constexpr float kExpOverflow = 88.73f;  // > ln(FLT_MAX) = 88.7228
-constexpr float kCullMargin = 1.05f;
-constexpr float kFiniteLog = 87.0f;     // + ln 2 < ln(FLT_MAX)
-
-// Whether a frame row proves the cull's bounds (see the top of the file).
-__device__ bool cull_sound(const float* p) {
-  for (int i = 0; i < kNPar; ++i) {
-    if (!isfinite(p[i])) return false;
-  }
-  const float a1 = p[0], a2 = p[1], a3 = p[2], e1 = p[3], e2 = p[4];
-  if (!(fminf(a1, fminf(a2, a3)) >= 0.05f)) return false;
-  if (!(e1 >= 0.1f && e1 <= 1.0f && e2 >= 0.1f && e2 <= 1.0f)) return false;
-  const float* r = p + 8;
-  float g2 = 0.0f;  // ‖R‖₂² ≤ the largest row sum of |RᵀR|
-  for (int i = 0; i < 3; ++i) {
-    float row = 0.0f;
-    for (int j = 0; j < 3; ++j) {
-      row += fabsf(r[i] * r[j] + r[3 + i] * r[3 + j] + r[6 + i] * r[6 + j]);
-    }
-    g2 = fmaxf(g2, row);
-  }
-  const float d = sqrtf(g2) * 1.7320509f +
-                  sqrtf(p[5] * p[5] + p[6] * p[6] + p[7] * p[7]);
-  const float amin = fminf(a1, a2);
-  const float s = fmaxf(d * d / (amin * amin) + 2e-4f, d * d / (a3 * a3) +
-                        1e-4f);
-  return logf(s) <= kFiniteLog * fminf(e1, e2);
-}
-
-// Narrow [zl, zu] to the z where |u0 + c·z| ≤ bb, given ic = 1/c.
-__device__ __forceinline__ void clip_axis(float u0, float ic, float bb,
-                                          float& zl, float& zu) {
-  if (!(fabsf(ic) <= FLT_MAX)) {  // c is 0 or subnormal: u = u0 at every z
-    if (!(fabsf(u0) <= bb)) {
-      zl = INFINITY;
-      zu = -INFINITY;
-    }
-    return;
-  }
-  const float za = (-bb - u0) * ic, zb = (bb - u0) * ic;
-  zl = fmaxf(zl, fminf(za, zb));
-  zu = fminf(zu, fmaxf(za, zb));
-}
-
-// The lattice planes [j0, j1] whose z (z_0 = 1e-4, z_j = j/N) lies in the
-// z interval where one frame's |u|, |v|, |w| ≤ bb; j0 > j1 when none.
-__device__ __forceinline__ void box_planes(const Recip& k, float u0,
-                                           float v0, float w0, float bb,
-                                           int n, int& j0, int& j1) {
-  float zl = -INFINITY, zu = INFINITY;
-  clip_axis(u0, k.icu, bb, zl, zu);
-  clip_axis(v0, k.icv, bb, zl, zu);
-  clip_axis(w0, k.icw, bb, zl, zu);
-  const float fn = (float)n;
-  j0 = zl <= 1e-4f ? 0 : (int)ceilf(fminf(zl * fn, fn + 1.0f));
-  j1 = zu < 1e-4f ? -1 : (int)floorf(fminf(zu * fn, fn));
-}
-
 __global__ void __launch_bounds__(kThreads, kFusedMinBlocks)
 explicit_fused_kernel(const float* __restrict__ par_t,
                       const float* __restrict__ par_p,
@@ -233,7 +152,7 @@ explicit_fused_kernel(const float* __restrict__ par_t,
   if (threadIdx.x == 2) {
     const bool ok = sharp > 0.0f && sharp <= FLT_MAX && cull_sound(st) &&
                     cull_sound(sp);
-    s_bb = ok ? sqrtf(kCullMargin * (1.0f + kExpOverflow / sharp)) : 0.0f;
+    s_bb = ok ? box_half_width(sharp) : 0.0f;
   }
   __syncthreads();
   const Recip& kt = kr[0];

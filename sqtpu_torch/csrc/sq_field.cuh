@@ -1,5 +1,6 @@
-// The superquadric inside-outside field and its 17-parameter gradient chain,
-// shared by the loss kernels (implicit.cu: K1/K2, explicit.cu: K4/K5).
+// The superquadric inside-outside field, its 17-parameter gradient chain
+// and the exact-zero cull, shared by the loss kernels (implicit.cu: K1/K2,
+// explicit.cu: K4/K5).
 //
 // Same arithmetic as sqtpu/ops/kernels/implicit.py::_field_terms, _occ and
 // _frame_grad_step, which the Pallas kernels of both losses share:
@@ -16,10 +17,16 @@
 // exactly 0, and inf·0 would give NaN. The clamp keeps a NaN, as
 // jnp.minimum does. Accurate logf/expf (no fast-math), for parity with the
 // reference.
+//
+// field_terms divides by a and e at every point (K5). The redesigned
+// kernels (K1, K2, K4) use field_terms_lin, sep_grad_step and sep_finish
+// below: per-sample reciprocals, body coordinates linear in z along a
+// lattice column, and 11 running sums a column for the 17 terms.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 
 namespace {
@@ -96,43 +103,6 @@ __device__ __forceinline__ float ex(float logterm) {
   return expf(min_nan(logterm, kClamp));
 }
 
-// The 17-term chain of sqtpu/ops/kernels/implicit.py::_frame_grad_step: adds
-// gF · dF/d(frame scalar) at one point to acc.
-__device__ __forceinline__ void frame_grad_step(float* acc, const Terms& t,
-                                                float gF, const Frame& f,
-                                                float X, float Y, float z) {
-  const float lfh = (f.e1 - 1.0f) * t.lh;
-  const float dF_dx2 =
-      ex(lfh + (f.e21 - 1.0f) * t.lg + (1.0f / f.e2 - 1.0f) * t.lx);
-  const float dF_dy2 =
-      ex(lfh + (f.e21 - 1.0f) * t.lg + (1.0f / f.e2 - 1.0f) * t.ly);
-  const float dF_dz2 = ex(lfh + (1.0f / f.e1 - 1.0f) * t.lz);
-  const float gx = gF * dF_dx2 * 2.0f * t.u;
-  const float gy = gF * dF_dy2 * 2.0f * t.v;
-  const float gz = gF * dF_dz2 * 2.0f * t.w;
-  acc[0] += -gx * t.u / f.a1;
-  acc[1] += -gy * t.v / f.a2;
-  acc[2] += -gz * t.w / f.a3;
-  const float le = f.e21 * t.lg;
-  const float ex_le = ex(lfh + le);
-  acc[3] += gF * (min_nan(t.F, kExpClamp) * t.lh -
-                  (ex_le * t.lg * f.e2 + dF_dz2 * t.z2g * t.lz) / f.e1);
-  acc[4] += gF * (ex_le * t.lg -
-                  (dF_dx2 * t.x2g * t.lx + dF_dy2 * t.y2g * t.ly) / f.e2);
-  acc[5] += -gx / f.a1;
-  acc[6] += -gy / f.a2;
-  acc[7] += -gz / f.a3;
-  acc[8] += gx * X / f.a1;
-  acc[9] += gx * Y / f.a1;
-  acc[10] += gx * z / f.a1;
-  acc[11] += gy * X / f.a2;
-  acc[12] += gy * Y / f.a2;
-  acc[13] += gy * z / f.a2;
-  acc[14] += gz * X / f.a3;
-  acc[15] += gz * Y / f.a3;
-  acc[16] += gz * z / f.a3;
-}
-
 // Fixed-order sum over the 32 lanes; lane 0 holds the result.
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -161,9 +131,9 @@ __global__ void sum_partials(const float* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------------------
-// K4's chain (explicit.cu explicit_fused_kernel): the field and gradient
-// above, with every divisor replaced by a reciprocal computed once per
-// sample and the body coordinates linear in z along a lattice column.
+// The redesigned chain (K1, K2, K4): the field and gradient above, with
+// every divisor replaced by a reciprocal computed once per sample and the
+// body coordinates linear in z along a lattice column.
 // ---------------------------------------------------------------------------
 
 // Per-sample constants of one frame row.
@@ -221,8 +191,11 @@ __device__ __forceinline__ Terms field_terms_lin(const Recip& k, float u,
   return t;
 }
 
-// The gradient of frame_grad_step, summed along one column. Per axis the
-// rotation and translation terms factor: acc[5] = −Σgx/a1 and acc[8..10]
+// The gradient of F in the 17 frame scalars, summed along one column:
+// gx = gF·dF/dx2·2u (gy, gz likewise), and the terms −gx·u/a1 (size),
+// −gx/a1 (translation), gx·(X, Y, z)/a1 (rotation), and the two exponent
+// terms. Per axis the rotation and translation terms factor: acc[5] =
+// −Σgx/a1 and acc[8..10]
 // = Σgx·(X, Y, z)/a1, with X, Y and 1/a1 constant along the column, so
 // Σg and Σg·z carry all four; the size terms need Σg·u. With the two
 // exponent terms, 11 running sums stand for the 17.
@@ -260,8 +233,8 @@ __device__ __forceinline__ void sep_grad_step(SepAcc& s, const Terms& t,
   s.gzz += gz * z;
 }
 
-// The 17 frame-scalar terms of one column from its running sums, in
-// frame_grad_step's order.
+// The 17 frame-scalar terms of one column from its running sums, in the
+// frame row's order.
 __device__ __forceinline__ void sep_finish(float* acc, const SepAcc& s,
                                            const Recip& k, float X,
                                            float Y) {
@@ -282,6 +255,101 @@ __device__ __forceinline__ void sep_finish(float* acc, const SepAcc& s,
   acc[14] = s.gz * X * k.ia3;
   acc[15] = s.gz * Y * k.ia3;
   acc[16] = s.gzz * k.ia3;
+}
+
+// ---------------------------------------------------------------------------
+// The exact-zero cull (K1, K2, K4). In exact arithmetic F ≥ max(x2g, y2g,
+// z2g) ≥ max(u², v², w²) for every e > 0 (each power is monotone, every
+// term is non-negative). Where sharp·(F − 1) > 88.73 > ln(FLT_MAX) =
+// 88.7228, expf overflows and the occupancy 1/(1 + expf(.)) is exactly
+// 0.0f. So a point outside the box |u|, |v|, |w| ≤ bb of a frame, with
+//     bb² = 1.05 · (1 + 88.73/sharp),
+// has occupancy exactly 0 under that frame, and where every gradient term
+// is gF times a finite number (the dF terms and ex_le are clamped at e^30,
+// min_nan clamps F, lg and lh are finite: below), a point whose gF is ±0
+// adds ±0 to every running sum, which changes no bit of a sum that starts
+// at +0. The 5% margin covers the float chain's rounding: every log-domain
+// value stays below 87.7 in magnitude (below), each logf, expf and product
+// adds a few 2^-24 of it, and e2/e1 ≤ 10, e1 ≤ 1 amplify that to well
+// under 1e-3 of F; the interval's own rounding (|u0|, |cu| ≤ 70 in float)
+// and the lattice's z_j = j·fl(1/last) move |u| by under 1e-4. Half the
+// margin would do.
+//
+// The cull runs only for a row that proves those bounds (cull_sound):
+// every value finite, a ≥ 0.05, e1 and e2 in [0.1, 1], and log(S)/min(e1,
+// e2) ≤ 87, where S bounds x2g + y2g and z2g over the unit cube:
+// |(u·a1, v·a2, w·a3)| = |R·p − t_rot| ≤ ‖R‖₂·√3 + |t_rot| = D for p in
+// [0, 1]³, so u² + v² ≤ D²/min(a1, a2)² and w² ≤ D²/a3². As 1/e2 ≥ 1,
+// A + B ≤ (x2g + y2g)^(1/e2), so lg ≤ log(S)/e2 and log E ≤ log(S)/e1,
+// log C ≤ log(S)/e1, and lh ≤ ln 2 + 87 < 88.72: nothing overflows. Rows
+// of clamped params (a ≥ 0.05, e in [0.1, 1], t in [0, 1]³, a rotation)
+// give D ≤ 2√3 and log(S)/min(e) ≤ 84.8, so every row the wrappers pack
+// is culled; any other row sweeps its whole window.
+// ---------------------------------------------------------------------------
+
+constexpr float kExpOverflow = 88.73f;  // > ln(FLT_MAX) = 88.7228
+constexpr float kCullMargin = 1.05f;
+constexpr float kFiniteLog = 87.0f;     // + ln 2 < ln(FLT_MAX)
+
+// Whether a frame row proves the cull's bounds (above).
+__device__ bool cull_sound(const float* p) {
+  for (int i = 0; i < kNPar; ++i) {
+    if (!isfinite(p[i])) return false;
+  }
+  const float a1 = p[0], a2 = p[1], a3 = p[2], e1 = p[3], e2 = p[4];
+  if (!(fminf(a1, fminf(a2, a3)) >= 0.05f)) return false;
+  if (!(e1 >= 0.1f && e1 <= 1.0f && e2 >= 0.1f && e2 <= 1.0f)) return false;
+  const float* r = p + 8;
+  float g2 = 0.0f;  // ‖R‖₂² ≤ the largest row sum of |RᵀR|
+  for (int i = 0; i < 3; ++i) {
+    float row = 0.0f;
+    for (int j = 0; j < 3; ++j) {
+      row += fabsf(r[i] * r[j] + r[3 + i] * r[3 + j] + r[6 + i] * r[6 + j]);
+    }
+    g2 = fmaxf(g2, row);
+  }
+  const float d = sqrtf(g2) * 1.7320509f +
+                  sqrtf(p[5] * p[5] + p[6] * p[6] + p[7] * p[7]);
+  const float amin = fminf(a1, a2);
+  const float s = fmaxf(d * d / (amin * amin) + 2e-4f, d * d / (a3 * a3) +
+                        1e-4f);
+  return logf(s) <= kFiniteLog * fminf(e1, e2);
+}
+
+// The box half-width bb for this sharpness.
+__device__ __forceinline__ float box_half_width(float sharp) {
+  return sqrtf(kCullMargin * (1.0f + kExpOverflow / sharp));
+}
+
+// Narrow [zl, zu] to the z where |u0 + c·z| ≤ bb, given ic = 1/c.
+__device__ __forceinline__ void clip_axis(float u0, float ic, float bb,
+                                          float& zl, float& zu) {
+  if (!(fabsf(ic) <= FLT_MAX)) {  // c is 0 or subnormal: u = u0 at every z
+    if (!(fabsf(u0) <= bb)) {
+      zl = INFINITY;
+      zu = -INFINITY;
+    }
+    return;
+  }
+  const float za = (-bb - u0) * ic, zb = (bb - u0) * ic;
+  zl = fmaxf(zl, fminf(za, zb));
+  zu = fminf(zu, fmaxf(za, zb));
+}
+
+// The lattice planes [j0, j1] whose z (z_0 = 1e-4, z_j = j/last, last the
+// lattice's last index: N on the explicit lattice, n − 1 on the implicit
+// one) lies in the z interval where one frame's |u|, |v|, |w| ≤ bb; j0 >
+// j1 when none.
+__device__ __forceinline__ void box_planes(const Recip& k, float u0,
+                                           float v0, float w0, float bb,
+                                           int last, int& j0, int& j1) {
+  float zl = -INFINITY, zu = INFINITY;
+  clip_axis(u0, k.icu, bb, zl, zu);
+  clip_axis(v0, k.icv, bb, zl, zu);
+  clip_axis(w0, k.icw, bb, zl, zu);
+  const float fn = (float)last;
+  j0 = zl <= 1e-4f ? 0 : (int)ceilf(fminf(zl * fn, fn + 1.0f));
+  j1 = zu < 1e-4f ? -1 : (int)floorf(fminf(zu * fn, fn));
 }
 
 }  // namespace

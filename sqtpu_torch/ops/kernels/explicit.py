@@ -32,7 +32,9 @@ Beside the kernels, :func:`emulate_fwd` and :func:`emulate_fused` are a
 torch emulation of their own algorithm, the analogue of Pallas interpret
 mode: K5's sweep with the shared field chain, and K4's with the per-sample
 reciprocals, the body coordinates linear in z, the 11 running sums a
-column and the exact-zero cull (``csrc/explicit.cu``). The tests hold it
+column and the exact-zero cull (``csrc/explicit.cu``), from the helpers
+shared with the implicit loss's emulation (``sq_field.py``, the
+counterpart of ``csrc/sq_field.cuh``). The tests hold it
 against the JAX kernels in interpret mode and against autograd of the
 plain loss; on the card the kernels are held against it. The main path
 never calls it.
@@ -50,21 +52,17 @@ from sqtpu_torch.ops import geometry
 from sqtpu_torch.ops import losses
 from sqtpu_torch.ops import quaternion as quat
 from sqtpu_torch.ops.kernels.implicit import (
-    EXPCLAMP, MAX_BATCH, N_PAR, PAR_STRIDE, SLOT_JHI, SLOT_JLO, _ex,
-    _field_terms, _occ, _raise_on, _sweep_setup, _zval, check_operand,
-    frame_params,
+    MAX_BATCH, PAR_STRIDE, SLOT_JHI, SLOT_JLO, _raise_on, _sweep_setup,
+    _zval, check_operand, frame_params,
+)
+from sqtpu_torch.ops.kernels.sq_field import (
+    N_PAR, SEP_SUMS, _body_origin, _box_planes, _field_terms,
+    _field_terms_lin, _occ, _occupancy, _recip, _Recip, _sep_finish,
+    _sep_grad_step, box_half_width, cull_sound,
 )
 
 SHARP = 5.0      # the reference's occupancy sharpness
 Z_MARGIN = 0.08  # window margin at SHARP, normalized z units
-# K4's exact-zero cull (csrc/explicit.cu): exp overflows above log(max) of
-# the dtype (88.7228 in float32, 709.78 in float64), where the occupancy
-# 1/(1 + exp(sharp·(F − 1))) is exactly 0; a column sweeps the planes where
-# |u|, |v| or |w| ≤ sqrt(CULL_MARGIN·(1 + EXP_OVERFLOW/sharp)) for either
-# shape, on samples whose rows keep every log-domain value below FINITE_LOG.
-EXP_OVERFLOW = {torch.float32: 88.73, torch.float64: 709.79}
-FINITE_LOG = {torch.float32: 87.0, torch.float64: 707.0}
-CULL_MARGIN = 1.05
 
 # Launches of K4 and K5 since the last reset_launches(); each wrapper adds
 # one where it launches its kernel and nowhere else.
@@ -80,7 +78,13 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     from sqtpu_torch.ops.kernels import _build
 
-    lib = _build.load("explicit")
+    return bind(_build.load("explicit"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Type the C entries of a library built from ``csrc/explicit.cu``
+    (this package's, or another checkout's for ``kernel_ab.py``); returns
+    it."""
     if not getattr(lib, "_sqtpu_typed", False):
         ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.sqtpu_explicit_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f64,
@@ -173,137 +177,6 @@ def emulate_fwd(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
     return total.sum(dim=-1)
 
 
-class _Recip(NamedTuple):
-    """K4's per-sample constants of one frame row (sq_field.cuh
-    ``make_recip``), each (B, 1)."""
-    ia: list    # 1/a1, 1/a2, 1/a3
-    c: list     # slopes of u, v, w in z: R[., 2]/a
-    ic: list    # their reciprocals
-    e1: torch.Tensor
-    e2: torch.Tensor
-    ie1: torch.Tensor
-    ie2: torch.Tensor
-    e21: torch.Tensor
-
-
-def _recip(par: torch.Tensor) -> _Recip:
-    ia = [1.0 / par[:, i:i + 1] for i in range(3)]
-    c = [par[:, k:k + 1] * ia[i] for i, k in enumerate((10, 13, 16))]
-    e1, e2 = par[:, 3:4], par[:, 4:5]
-    return _Recip(ia, c, [1.0 / x for x in c], e1, e2, 1.0 / e1, 1.0 / e2,
-                  e2 / e1)
-
-
-def _body_origin(par: torch.Tensor, k: _Recip, X, Y) -> list:
-    """u, v, w of each column at z = 0: (R[., :2]·(X, Y) − t_rot)/a."""
-    return [(par[:, 8 + 3 * i:9 + 3 * i] * X + par[:, 9 + 3 * i:10 + 3 * i]
-             * Y - par[:, 5 + i:6 + i]) * k.ia[i] for i in range(3)]
-
-
-def _field_terms_lin(k: _Recip, u, v, w) -> dict:
-    """K4's field chain (sq_field.cuh ``field_terms_lin``) on body
-    coordinates u, v, w."""
-    x2, y2, z2 = u * u, v * v, w * w
-    x2g = x2 + (x2 == 0).to(x2.dtype) * 1e-4
-    y2g = y2 + (y2 == 0).to(y2.dtype) * 1e-4
-    z2g = z2 + (z2 == 0).to(z2.dtype) * 1e-4
-    lx, ly, lz = torch.log(x2g), torch.log(y2g), torch.log(z2g)
-    tiny = torch.finfo(u.dtype).tiny
-    lg = torch.log(torch.exp(lx * k.ie2) + torch.exp(ly * k.ie2) + tiny)
-    lh = torch.log(torch.exp(lg * k.e21) + torch.exp(lz * k.ie1) + tiny)
-    return dict(u=u, v=v, w=w, x2g=x2g, y2g=y2g, z2g=z2g, lx=lx, ly=ly,
-                lz=lz, lg=lg, lh=lh, F=torch.exp(lh * k.e1))
-
-
-def _occupancy(F, sharp: float):
-    """The kernels' sigmoid, 1/(1 + exp(−sharp·(1 − F))): exactly 0 where
-    exp overflows."""
-    return 1.0 / (1.0 + torch.exp(-(sharp * (1.0 - F))))
-
-
-def _sep_grad_step(acc: dict, T: dict, gF, k: _Recip, z) -> None:
-    """Add one plane to a column's 11 running sums (sq_field.cuh
-    ``sep_grad_step``)."""
-    lfh = (k.e1 - 1.0) * T["lh"]
-    lxy = lfh + (k.e21 - 1.0) * T["lg"]
-    dF_dx2 = _ex(lxy + (k.ie2 - 1.0) * T["lx"])
-    dF_dy2 = _ex(lxy + (k.ie2 - 1.0) * T["ly"])
-    dF_dz2 = _ex(lfh + (k.ie1 - 1.0) * T["lz"])
-    g = [gF * dF_dx2 * 2.0 * T["u"], gF * dF_dy2 * 2.0 * T["v"],
-         gF * dF_dz2 * 2.0 * T["w"]]
-    ex_le = _ex(lfh + k.e21 * T["lg"])
-    lg, lh = T["lg"], T["lh"]
-    terms = {
-        "gu": g[0] * T["u"], "gv": g[1] * T["v"], "gw": g[2] * T["w"],
-        "de1": gF * (torch.clamp(T["F"], max=EXPCLAMP) * lh
-                     - (ex_le * lg * k.e2 + dF_dz2 * T["z2g"] * T["lz"])
-                     * k.ie1),
-        "de2": gF * (ex_le * lg - (dF_dx2 * T["x2g"] * T["lx"] + dF_dy2
-                                   * T["y2g"] * T["ly"]) * k.ie2),
-        "gx": g[0], "gy": g[1], "gz": g[2],
-        "gxz": g[0] * z, "gyz": g[1] * z, "gzz": g[2] * z,
-    }
-    for name, t in terms.items():
-        acc[name] = acc[name] + t
-
-
-def _sep_finish(acc: dict, k: _Recip, X, Y) -> list:
-    """A column's 17 frame-scalar terms from its running sums."""
-    ia1, ia2, ia3 = k.ia
-    return [-acc["gu"] * ia1, -acc["gv"] * ia2, -acc["gw"] * ia3,
-            acc["de1"], acc["de2"],
-            -acc["gx"] * ia1, -acc["gy"] * ia2, -acc["gz"] * ia3,
-            acc["gx"] * X * ia1, acc["gx"] * Y * ia1, acc["gxz"] * ia1,
-            acc["gy"] * X * ia2, acc["gy"] * Y * ia2, acc["gyz"] * ia2,
-            acc["gz"] * X * ia3, acc["gz"] * Y * ia3, acc["gzz"] * ia3]
-
-
-def cull_sound(par: torch.Tensor) -> torch.Tensor:
-    """(B,) whether a frame row proves the cull's bounds (csrc/explicit.cu
-    ``cull_sound``): finite, a ≥ 0.05, e in [0.1, 1], and log(S)/min(e) ≤
-    FINITE_LOG with S bounding x2g + y2g and z2g over the unit cube."""
-    p = par[:, :N_PAR]
-    a, e = p[:, :3], p[:, 3:5]
-    ok = (torch.isfinite(p).all(dim=-1) & (a.min(dim=-1).values >= 0.05)
-          & ((e >= 0.1) & (e <= 1.0)).all(dim=-1))
-    rot = torch.nan_to_num(p[:, 8:17]).reshape(-1, 3, 3)
-    g2 = (rot.transpose(-1, -2) @ rot).abs().sum(dim=-1).max(dim=-1).values
-    d = torch.sqrt(g2) * 1.7320509 + torch.linalg.vector_norm(
-        torch.nan_to_num(p[:, 5:8]), dim=-1)
-    amin = torch.minimum(a[:, 0], a[:, 1])
-    s = torch.maximum(d * d / (amin * amin) + 2e-4,
-                      d * d / (a[:, 2] * a[:, 2]) + 1e-4)
-    return ok & (torch.log(s) <= FINITE_LOG[par.dtype] * e.min(dim=-1).values)
-
-
-def box_half_width(sharp: float, dtype=torch.float32) -> torch.Tensor:
-    """The cull's box: sqrt(1.05·(1 + EXP_OVERFLOW/sharp))."""
-    one = torch.ones((), dtype=dtype)
-    return torch.sqrt(CULL_MARGIN * one * (1.0 + EXP_OVERFLOW[dtype] * one
-                                           / sharp))
-
-
-def _box_planes(k: _Recip, origin: list, bb, n: int):
-    """The planes [j0, j1] whose z lies in the interval where one frame's
-    |u|, |v|, |w| ≤ bb (csrc/explicit.cu ``box_planes``)."""
-    inf = origin[0].new_tensor(math.inf)
-    zl, zu = -inf, inf
-    for u0, ic in zip(origin, k.ic):
-        flat = ~(ic.abs() <= torch.finfo(ic.dtype).max)  # u = u0 at every z
-        za, zb = (-bb - u0) * ic, (bb - u0) * ic
-        out = ~(u0.abs() <= bb)
-        zl = torch.where(flat, torch.where(out, inf, zl),
-                         torch.maximum(zl, torch.minimum(za, zb)))
-        zu = torch.where(flat, torch.where(out, -inf, zu),
-                         torch.minimum(zu, torch.maximum(za, zb)))
-    fn = float(n)
-    j0 = torch.where(zl <= 1e-4, 0.0, torch.ceil(torch.clamp(zl * fn,
-                                                             max=fn + 1)))
-    j1 = torch.where(zu < 1e-4, -1.0, torch.floor(torch.clamp(zu * fn,
-                                                              max=fn)))
-    return j0.to(torch.int64), j1.to(torch.int64)
-
-
 class _Columns(NamedTuple):
     X: torch.Tensor       # (B, (N+1)²) column coordinates
     Y: torch.Tensor
@@ -346,9 +219,7 @@ def emulate_fused(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
     col = _columns(par_t, par_p, n, sharp, cull)
     kt, kp = col.kt, col.kp
     total = torch.zeros_like(col.X)
-    acc = {k: torch.zeros_like(col.X) for k in (
-        "gu", "gv", "gw", "de1", "de2", "gx", "gy", "gz", "gxz", "gyz",
-        "gzz")}
+    acc = {k: torch.zeros_like(col.X) for k in SEP_SUMS}
     lo = int(col.j0.min()) if col.j0.numel() else 0
     for j in range(lo, int(col.j1.max()) + 1):
         active = (col.j0 <= j) & (j <= col.j1)
@@ -361,9 +232,8 @@ def emulate_fused(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
         occ_p = _occupancy(T["F"], sharp)
         d = occ_t - occ_p
         total = total + torch.where(active, d * d, 0.0)
-        gF = torch.where(active, 2.0 * d * sharp * occ_p * (1.0 - occ_p),
-                         0.0)
-        _sep_grad_step(acc, T, gF, kp, z)
+        gF = 2.0 * d * sharp * occ_p * (1.0 - occ_p)
+        _sep_grad_step(acc, T, gF, kp, z, active)
     dpar = torch.zeros_like(par_p)
     dpar[:, :N_PAR] = torch.stack(
         [t.sum(dim=-1) for t in _sep_finish(acc, kp, col.X, col.Y)], dim=-1)
@@ -399,8 +269,25 @@ def cuda_fwd(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
              sharp: float) -> torch.Tensor:
     """K5 on the card: same contract as :func:`emulate_fwd`."""
     global fwd_launches
+    sums = _launch_fwd(par_t, par_p, n, sharp)
+    fwd_launches += 1
+    return sums
+
+
+def cuda_fused(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
+               sharp: float):
+    """K4 on the card: same contract as :func:`emulate_fused`."""
+    global fused_launches
+    out = _launch_fused(par_t, par_p, n, sharp)
+    fused_launches += 1
+    return out
+
+
+def _launch_fwd(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
+                sharp: float, lib: ctypes.CDLL | None = None):
+    """K5 of ``lib`` (default: this package's) on the card."""
     _check_operands(n, par_t, par_p)
-    lib = _lib()
+    lib = _lib() if lib is None else lib
     b = par_p.shape[0]
     blocks = lib.sqtpu_explicit_blocks(n)
     partial = torch.empty((b, blocks), dtype=torch.float32,
@@ -412,16 +299,14 @@ def cuda_fwd(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
                                      partial.data_ptr(), sums.data_ptr(), b,
                                      n, float(sharp), stream)
     _raise_on(lib, err, "explicit loss (K5)")
-    fwd_launches += 1
     return sums
 
 
-def cuda_fused(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
-               sharp: float):
-    """K4 on the card: same contract as :func:`emulate_fused`."""
-    global fused_launches
+def _launch_fused(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
+                  sharp: float, lib: ctypes.CDLL | None = None):
+    """K4 of ``lib`` (default: this package's) on the card."""
     _check_operands(n, par_t, par_p)
-    lib = _lib()
+    lib = _lib() if lib is None else lib
     b = par_p.shape[0]
     blocks = lib.sqtpu_explicit_fused_blocks(n)
     dev = par_p.device
@@ -437,7 +322,6 @@ def cuda_fused(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
             partial_grad.data_ptr(), sums.data_ptr(), dpar.data_ptr(), b, n,
             float(sharp), stream)
     _raise_on(lib, err, "explicit loss value and gradient (K4)")
-    fused_launches += 1
     return sums, dpar
 
 

@@ -45,7 +45,13 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     from sqtpu_torch.ops.kernels import _build
 
-    lib = _build.load("hardrender")
+    return bind(_build.load("hardrender"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Type the C entries of a library built from ``csrc/hardrender.cu``
+    (this package's, or another checkout's for ``kernel_ab.py``); returns
+    it."""
     if not getattr(lib, "_sqtpu_typed", False):
         fn = lib.sqtpu_hardrender
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -84,6 +90,7 @@ def render_depth_hard_cuda(p: torch.Tensor, image_size: int = 256,
                            n_sweep: int = 48, n_bisect: int = 12,
                            quantize: bool = True) -> torch.Tensor:
     """(B, 12) params -> (B, S, S) float32 depth maps, image layout."""
+    global launches
     if p.ndim != 2 or p.shape[-1] != geometry.N_PARAMS:
         raise ValueError(f"params must be (B, 12), got {tuple(p.shape)}")
     if not p.is_floating_point():
@@ -100,15 +107,18 @@ def render_depth_hard_cuda(p: torch.Tensor, image_size: int = 256,
     if not 0 < p.shape[0] <= 65535:
         raise ValueError(f"batch {p.shape[0]} outside the kernel's grid "
                          "(1..65535)")
-    return _launch(pack_frames(p, n_sweep), image_size, n_sweep, n_bisect,
-                   quantize)
+    out = _launch(pack_frames(p, n_sweep), image_size, n_sweep, n_bisect,
+                  quantize)
+    launches += 1
+    return out
 
 
 def _launch(par: torch.Tensor, image_size: int, n_sweep: int,
-            n_bisect: int, quantize: bool = True) -> torch.Tensor:
-    """The kernel on (B, 24) rows packed by :func:`pack_frames` on the
-    card -> (B, S, S) float32 depth maps; raises unless it launched."""
-    global launches
+            n_bisect: int, quantize: bool = True,
+            lib: ctypes.CDLL | None = None) -> torch.Tensor:
+    """The kernel of ``lib`` (default: this package's) on (B, 24) rows
+    packed by :func:`pack_frames` on the card -> (B, S, S) float32 depth
+    maps; raises unless it launched."""
     b = par.shape[0]
     if not (par.is_cuda and par.is_contiguous()
             and par.dtype == torch.float32 and par.shape == (b, PAR_STRIDE)
@@ -116,7 +126,7 @@ def _launch(par: torch.Tensor, image_size: int, n_sweep: int,
         raise RuntimeError("packed frame scalars have the wrong layout")
     out = torch.empty((b, image_size, image_size), dtype=torch.float32,
                       device=par.device)
-    lib = _lib()
+    lib = _lib() if lib is None else lib
     with torch.cuda.device(par.device):
         stream = torch.cuda.current_stream(par.device).cuda_stream
         err = lib.sqtpu_hardrender(par.data_ptr(), out.data_ptr(), b,
@@ -125,7 +135,6 @@ def _launch(par: torch.Tensor, image_size: int, n_sweep: int,
     if err != 0:
         raise RuntimeError("hardrender kernel launch failed: "
                            + lib.sqtpu_error_string(err).decode())
-    launches += 1
     return out
 
 

@@ -37,15 +37,20 @@ apart from K1's and K2's.
 
 Beside the kernels, :func:`emulate_fwd` and :func:`emulate_bwd` are a
 torch emulation of their own algorithm (same window, closed-form terms,
-Tacc residual and analytic backward), the analogue of Pallas interpret
-mode. The tests hold it against the JAX kernel in interpret mode and
-against autograd of the plain loss; on the card the kernels are held
-against it. The main path never calls it.
+Tacc residual and analytic backward; per-sample reciprocals, body
+coordinates linear in z, 11 running sums a pixel and the exact-zero cull,
+from the helpers shared with the explicit loss's emulation in
+``sq_field.py``), the analogue of Pallas interpret mode; ``cull=False``
+sweeps the whole window with the same arithmetic. The tests hold it
+against the JAX kernel in interpret mode and against autograd of the
+plain loss; on the card the kernels are held against it. The main path
+never calls it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -55,18 +60,17 @@ from sqtpu_torch.ops import losses
 from sqtpu_torch.ops import quaternion as quat
 from sqtpu_torch.ops import render
 from sqtpu_torch.ops.image import nearest_resize
+from sqtpu_torch.ops.kernels.sq_field import (
+    N_PAR, SEP_SUMS, _body_origin, _box_planes, _field_terms_lin,
+    _occupancy, _recip, _Recip, _sep_finish, _sep_grad_step, box_half_width,
+    cull_sound,
+)
 
-N_PAR = 17         # frame scalars: a(3), e(2), t_rot(3), R(9)
 PAR_STRIDE = 24    # floats per sample in the packed parameters
 Z_MARGIN = 0.05    # z-window margin, normalized z units
 # slots 17..19 carry the z window [j_lo, j_hi] as float lattice indices and
 # the x-column offset of the plane slab; 20..23 are zero
 SLOT_JLO, SLOT_JHI, SLOT_X0 = 17, 18, 19
-# The gradient's exponentials are assembled in log space with the exponent
-# clamped: far outside the occupancy shell they overflow while their
-# cotangent is exactly 0, and inf·0 would give NaN.
-CLAMP = 30.0
-EXPCLAMP = 1.0686475e13  # exp(CLAMP) in float32
 MAX_BATCH = 65535        # the kernels' grid.y
 
 # Launches of K1 and K2 on the whole plane, and of K6 (the same kernels on
@@ -86,7 +90,13 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     from sqtpu_torch.ops.kernels import _build
 
-    lib = _build.load("implicit")
+    return bind(_build.load("implicit"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Type the C entries of a library built from ``csrc/implicit.cu``
+    (this package's, or another checkout's or build's for ``kernel_ab.py``);
+    returns it."""
     if not getattr(lib, "_sqtpu_typed", False):
         ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.sqtpu_implicit_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
@@ -207,124 +217,110 @@ def _zval(j: int, inv: float, like: torch.Tensor) -> torch.Tensor:
     return like.new_tensor(float(j)) * inv
 
 
-def _field_terms(pp, X, Y, z) -> dict:
-    """The forward chain at one z plane (``_field_terms`` of the JAX
-    kernel, :149-178)."""
-    a1, a2, a3, e1, e2, t0, t1, t2 = pp[:8]
-    r = pp[8:17]
-    u = (r[0] * X + r[1] * Y + r[2] * z - t0) / a1
-    v = (r[3] * X + r[4] * Y + r[5] * z - t1) / a2
-    w = (r[6] * X + r[7] * Y + r[8] * z - t2) / a3
-    x2, y2, z2 = u * u, v * v, w * w
-    x2g = x2 + (x2 == 0).to(x2.dtype) * 1e-4
-    y2g = y2 + (y2 == 0).to(y2.dtype) * 1e-4
-    z2g = z2 + (z2 == 0).to(z2.dtype) * 1e-4
-    lx, ly, lz = torch.log(x2g), torch.log(y2g), torch.log(z2g)
-    A = torch.exp(lx / e2)
-    B = torch.exp(ly / e2)
-    C = torch.exp(lz / e1)
-    tiny = torch.finfo(X.dtype).tiny
-    G = A + B + tiny
-    lg = torch.log(G)
-    E = torch.exp(lg * (e2 / e1))
-    H = E + C + tiny
-    lh = torch.log(H)
-    F = torch.exp(lh * e1)
-    return dict(u=u, v=v, w=w, x2g=x2g, y2g=y2g, z2g=z2g, lx=lx, ly=ly,
-                lz=lz, lg=lg, lh=lh, F=F)
+class _Rays(NamedTuple):
+    sw: _Sweep
+    k: _Recip
+    origin: list      # u, v, w of each pixel at z = 0, each (B, P)
+    a: torch.Tensor   # (B, P) the planes each pixel sweeps, from b down
+    b: torch.Tensor   # to a (a = lo, b = lo − 1: none), int64
 
 
-def _ex(logterm: torch.Tensor) -> torch.Tensor:
-    return torch.exp(torch.clamp(logterm, max=CLAMP))
+def _rays(par: torch.Tensor, n: int, n_cols: int, tau: float, sharp: float,
+          cull: bool, finite=None) -> _Rays:
+    """The kernels' per-sample constants, per-pixel body origins and
+    planes: each sample's window [j_lo, j_hi], cut to the frame's box
+    (the exact-zero cull) where the row proves it sound, 0 < sharp and 0 ≤
+    τ are finite, and ``finite`` (B, P), if given, holds."""
+    sw = _sweep_setup(par, n, n_cols)
+    k = _recip(par)
+    origin = _body_origin(par, k, sw.X, sw.Y)
+    lo, hi = sw.lo.expand_as(sw.X), sw.hi.expand_as(sw.X)
+    a, b = lo, hi
+    if cull and 0.0 < sharp < math.inf and 0.0 <= tau < math.inf:
+        bb = box_half_width(sharp, par.dtype).to(par.device)
+        j0, j1 = _box_planes(k, origin, bb, n - 1)
+        on = cull_sound(par)[:, None].expand_as(sw.X)
+        if finite is not None:
+            on = on & finite
+        a = torch.where(on, torch.maximum(lo, j0), lo)
+        b = torch.where(on, torch.minimum(hi, j1), hi)
+        empty = a > b
+        a, b = torch.where(empty, lo, a), torch.where(empty, lo - 1, b)
+    return _Rays(sw, k, origin, a, b)
 
 
-def _frame_grad_step(acc: list, T: dict, gF, pp, X, Y, z) -> None:
-    """Add one plane's gradient of the 17 frame scalars to ``acc``
-    (``_frame_grad_step`` of the JAX kernel, :200-255)."""
-    a1, a2, a3, e1, e2 = pp[:5]
-    F, lh, lg = T["F"], T["lh"], T["lg"]
-    lx, ly, lz = T["lx"], T["ly"], T["lz"]
-    lfh = (e1 - 1.0) * lh
-    dF_dx2 = _ex(lfh + (e2 / e1 - 1.0) * lg + (1.0 / e2 - 1.0) * lx)
-    dF_dy2 = _ex(lfh + (e2 / e1 - 1.0) * lg + (1.0 / e2 - 1.0) * ly)
-    dF_dz2 = _ex(lfh + (1.0 / e1 - 1.0) * lz)
-    u, v, w = T["u"], T["v"], T["w"]
-    gx = gF * dF_dx2 * 2.0 * u
-    gy = gF * dF_dy2 * 2.0 * v
-    gz = gF * dF_dz2 * 2.0 * w
-    le = (e2 / e1) * lg
-    x2g, y2g, z2g = T["x2g"], T["y2g"], T["z2g"]
-    ex_le = _ex(lfh + le)
-    terms = [
-        -gx * u / a1, -gy * v / a2, -gz * w / a3,
-        gF * (torch.clamp(F, max=EXPCLAMP) * lh
-              - (ex_le * lg * e2 + dF_dz2 * z2g * lz) / e1),
-        gF * (ex_le * lg - (dF_dx2 * x2g * lx + dF_dy2 * y2g * ly) / e2),
-        -gx / a1, -gy / a2, -gz / a3,
-        gx * X / a1, gx * Y / a1, gx * z / a1,
-        gy * X / a2, gy * Y / a2, gy * z / a2,
-        gz * X / a3, gz * Y / a3, gz * z / a3,
-    ]
-    for i, t in enumerate(terms):
-        acc[i] = acc[i] + t
-
-
-def _occ(F, sharp: float):
-    return torch.sigmoid(sharp * (1.0 - F))
+def _field_at(r: _Rays, z) -> dict:
+    return _field_terms_lin(r.k, *[o + c * z for o, c in zip(r.origin,
+                                                             r.k.c)])
 
 
 def emulate_fwd(img_xy: torch.Tensor, par: torch.Tensor, n: int,
-                n_cols: int, tau: float, sharp: float):
+                n_cols: int, tau: float, sharp: float, cull: bool = True):
     """K1's algorithm in torch: (B, P) plane, (B, 24) params -> (B,) sums
-    of |img − depth| and the (B, P) transmittance sums Tacc. Each sample
-    sweeps only its own window [j_lo, j_hi]; the dtype is the params'."""
-    sw = _sweep_setup(par, n, n_cols)
-    S = torch.zeros_like(sw.X)
-    t_in = torch.zeros_like(sw.X)
-    for j in range(int(sw.hi.max()), int(sw.lo.min()) - 1, -1):
-        active = (sw.lo <= j) & (j <= sw.hi)
-        z = _zval(j, sw.inv, par)
-        F = _field_terms(sw.pp, sw.X, sw.Y, z)["F"]
-        S_j = S + _occ(F, sharp)
+    of |img − depth| and the (B, P) transmittance sums Tacc; the dtype is
+    the params'. Each pixel sweeps the planes of its sample's window
+    [j_lo, j_hi] inside the frame's box (the exact-zero cull); the far
+    planes outside it add 1 each to t_in as one integer, the near ones
+    T_end each, as adds. ``cull=False`` sweeps the whole window with the
+    same arithmetic: the cull skips only points of occupancy exactly 0 and
+    changes no bit."""
+    r = _rays(par, n, n_cols, tau, sharp, cull)
+    lo, hi = r.sw.lo.expand_as(r.a), r.sw.hi.expand_as(r.a)
+    S = torch.zeros_like(r.sw.X)
+    t_in = (hi - r.b).to(par.dtype)  # the far planes: T = 1 each
+    for j in range(int(r.b.max()), int(r.a.min()) - 1, -1):
+        active = (r.a <= j) & (j <= r.b)
+        S_j = S + _occupancy(_field_at(r, _zval(j, r.sw.inv, par))["F"],
+                             sharp)
         t_in = torch.where(active, t_in + torch.exp(-tau * S_j), t_in)
         S = torch.where(active, S_j, S)
-    c_pre = (n - 1) - sw.hi.to(par.dtype)
-    c_post = sw.lo.to(par.dtype)
-    tacc = c_pre + t_in + c_post * torch.exp(-tau * S)
+    t_end = torch.exp(-tau * S)
+    for j in range(int(r.a.max()) - 1, int(r.sw.lo.min()) - 1, -1):
+        t_in = torch.where((lo <= j) & (j < r.a), t_in + t_end, t_in)
+    c_pre = (n - 1) - r.sw.hi.to(par.dtype)
+    tacc = c_pre + t_in + r.sw.lo.to(par.dtype) * t_end
     sums = torch.abs(img_xy - (1.0 - tacc / n)).sum(dim=-1)
     return sums, tacc
 
 
 def emulate_bwd(img_xy: torch.Tensor, par: torch.Tensor, tacc: torch.Tensor,
                 g: torch.Tensor, n: int, n_cols: int, tau: float,
-                sharp: float):
+                sharp: float, cull: bool = True):
     """K2's algorithm in torch: -> (B, 24) gradient of the frame scalars
     (slots 17-23 zero) and the (B, P) image cotangent, for the upstream
-    gradient ``g`` (B,) of the per-sample sums."""
-    sw = _sweep_setup(par, n, n_cols)
-    depth = 1.0 - tacc / n
-    sgn = torch.sign(img_xy - depth)
+    gradient ``g`` (B,) of the per-sample sums. Each pixel sweeps the
+    planes of :func:`emulate_fwd`, with V entering them at c_pre + the far
+    planes; a pixel whose φ or Tacc is not finite sweeps its whole window.
+    The 17 terms come from 11 running sums a pixel. ``cull=False`` sweeps
+    the whole window with the same arithmetic."""
+    d = img_xy - (1.0 - tacc / n)
+    sgn = torch.where(torch.isnan(d), d, torch.sign(d))  # NaN stays NaN
     g = g[:, None]
     dimg = sgn * g
     phi = -sgn * g * (tau / n)
-    acc = [torch.zeros_like(sw.X) for _ in range(N_PAR)]
-    S = torch.zeros_like(sw.X)
-    V = ((n - 1) - sw.hi.to(par.dtype)).expand_as(sw.X)
-    for j in range(int(sw.hi.max()), int(sw.lo.min()) - 1, -1):
-        active = (sw.lo <= j) & (j <= sw.hi)
-        z = _zval(j, sw.inv, par)
-        T = _field_terms(sw.pp, sw.X, sw.Y, z)
-        occ = _occ(T["F"], sharp)
+    r = _rays(par, n, n_cols, tau, sharp, cull,
+              torch.isfinite(phi) & torch.isfinite(tacc))
+    hi = r.sw.hi.expand_as(r.a)
+    acc = {k: torch.zeros_like(r.sw.X) for k in SEP_SUMS}
+    S = torch.zeros_like(r.sw.X)
+    V = ((n - 1) - hi.to(par.dtype)) + (hi - r.b).to(par.dtype)
+    for j in range(int(r.b.max()), int(r.a.min()) - 1, -1):
+        active = (r.a <= j) & (j <= r.b)
+        z = _zval(j, r.sw.inv, par)
+        T = _field_at(r, z)
+        occ = _occupancy(T["F"], sharp)
         S_j = S + occ
         T_j = torch.exp(-tau * S_j)
         V_j = V + T_j
         W = tacc - V_j + T_j
-        gF = torch.where(active, phi * W * (-sharp) * occ * (1.0 - occ), 0.0)
-        _frame_grad_step(acc, T, gF, sw.pp, sw.X, sw.Y, z)
+        gF = phi * W * (-sharp) * occ * (1.0 - occ)
+        _sep_grad_step(acc, T, gF, r.k, z, active)
         S = torch.where(active, S_j, S)
         V = torch.where(active, V_j, V)
     dpar = torch.zeros_like(par)
-    dpar[:, :N_PAR] = torch.stack([a.sum(dim=-1) for a in acc], dim=-1)
+    dpar[:, :N_PAR] = torch.stack(
+        [t.sum(dim=-1) for t in _sep_finish(acc, r.k, r.sw.X, r.sw.Y)],
+        dim=-1)
     return dpar, dimg
 
 
@@ -374,9 +370,11 @@ def _raise_on(lib, err: int, what: str) -> None:
 
 
 def _launch_fwd(img_xy: torch.Tensor, par: torch.Tensor, n: int,
-                n_cols: int, tau: float, sharp: float, what: str):
+                n_cols: int, tau: float, sharp: float, what: str,
+                lib: ctypes.CDLL | None = None):
+    """K1 of ``lib`` (default: this package's) on the card."""
     _check_operands(n, n_cols, par, planes=(img_xy,))
-    lib = _lib()
+    lib = _lib() if lib is None else lib
     b = par.shape[0]
     blocks = lib.sqtpu_implicit_blocks(n, n_cols)
     tacc = torch.empty_like(img_xy)
@@ -395,10 +393,11 @@ def _launch_fwd(img_xy: torch.Tensor, par: torch.Tensor, n: int,
 
 def _launch_bwd(img_xy: torch.Tensor, par: torch.Tensor, tacc: torch.Tensor,
                 g: torch.Tensor, n: int, n_cols: int, tau: float,
-                sharp: float, what: str):
+                sharp: float, what: str, lib: ctypes.CDLL | None = None):
+    """K2 of ``lib`` (default: this package's) on the card."""
     g = g.contiguous()
     _check_operands(n, n_cols, par, planes=(img_xy, tacc), vectors=(g,))
-    lib = _lib()
+    lib = _lib() if lib is None else lib
     b = par.shape[0]
     blocks = lib.sqtpu_implicit_blocks(n, n_cols)
     dimg = torch.empty_like(img_xy)
@@ -629,9 +628,18 @@ def implicit_sums_slab_emulated(img_slab: torch.Tensor, pred_p: torch.Tensor,
 
 
 def window_points(par: torch.Tensor, n: int, n_cols: int) -> int:
-    """In-window (x, y, z) points the kernels visit for these packed
-    params: Σ_b (j_hi − j_lo + 1) · n · n_cols."""
+    """In-window (x, y, z) points for these packed params, the points the
+    TPU kernels' algorithm visits: Σ_b (j_hi − j_lo + 1) · n · n_cols."""
     span = par[:, SLOT_JHI].to(torch.int64) - par[:, SLOT_JLO].to(
         torch.int64) + 1
     return int(span.sum()) * n * n_cols
+
+
+def cull_points(par: torch.Tensor, n: int, n_cols: int, tau: float,
+                sharp: float) -> int:
+    """Points K1 evaluates after the exact-zero cull (and K2, for finite
+    cotangents and Tacc): Σ over the pixels of the planes each sweeps
+    (counted by the emulation)."""
+    r = _rays(par, n, n_cols, tau, sharp, True)
+    return int((r.b - r.a + 1).sum())
 

@@ -274,7 +274,8 @@ def test_field_chain_is_shared_not_copied():
     for name in ("explicit.cu", "implicit.cu"):
         src = _src(name)
         assert '#include "sq_field.cuh"' in src
-        for fn in ("field_terms(const Frame", "frame_grad_step(float* acc",
+        for fn in ("field_terms(const Frame", "sep_grad_step(SepAcc&",
+                   "box_planes(const Recip&", "bool cull_sound(",
                    "sum_partials(const float*", "struct Frame"):
             assert fn not in src and fn in header
 

@@ -18,8 +18,11 @@ to run. K6's slab sums and gradients over every x0 add up to K1/K2's on
 the whole plane (sums relative 1e-5, the params' gradient with K1/K2's
 tolerances, the image gradient rtol 1e-4), and each slab equals the
 emulation's and the plain slab render's (sums within 1e-5 of the
-sample's whole-plane sum). Slabs of 10 columns (640 pixels) leave the
-last 256-thread block of the grid part idle.
+sample's whole-plane sum). Slabs of 10 columns leave 6 of the 16 columns
+of a block's pixel tile idle. The redesigned K1/K2 (reciprocals, 11
+running sums a pixel, the exact-zero cull) are held at the ssl1 shape,
+B=512 and N=64, against their emulation and the plain loss with the same
+tolerances.
 
 The redesigned K4 (reciprocals, separable sums, the exact-zero cull) is
 held at the c4c shape, N=128 and sharpness 20, against its emulation, the
@@ -264,6 +267,43 @@ def test_refused_launch_raises(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         K.cuda_fwd(img_xy, par, 16, 16, 1.5, 260.0)
     assert K.fwd_launches == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("z_window", [True, False])
+def test_redesigned_implicit_kernels_at_the_ssl1_shape_on_card(cuda_device,
+                                                               z_window):
+    """K1/K2 at the ssl1 shape (B=512, N=64, τ 1.5, sharpness 260) on K3
+    images and noise images, against the emulation of their algorithm (the
+    exact-zero cull on) and the plain loss, twice to the bit; the cull
+    keeps a small share of the window's points."""
+    rng = np.random.default_rng(73)
+    truths = _params(rng, 512)
+    pred = truths + 0.02 * rng.normal(size=truths.shape)
+    pred[:, 8:] /= np.linalg.norm(pred[:, 8:], axis=-1, keepdims=True)
+    pred = pred.astype(np.float32)
+    k3 = render_hard_auto(torch.tensor(truths, device=cuda_device), 256,
+                          n_sweep=48, n_bisect=12).cpu().numpy()
+    noise = rng.uniform(0.05, 0.9, (512, 256, 256)).astype(np.float32)
+    for img in (k3, noise):
+        got = _torch_value_and_grads(K.implicit_loss_cuda, pred, img, 64,
+                                     z_window, cuda_device)
+        again = _torch_value_and_grads(K.implicit_loss_cuda, pred, img, 64,
+                                       z_window, cuda_device)
+        for a, b in zip(got, again):
+            np.testing.assert_array_equal(a, b)
+        for fn in (K.implicit_loss_emulated, _plain):
+            want = _torch_value_and_grads(fn, pred, img, 64, z_window,
+                                          cuda_device)
+            assert got[0] == pytest.approx(want[0], rel=1e-5)
+            np.testing.assert_allclose(got[1], want[1], rtol=5e-3,
+                                       atol=grad_atol(want[1]))
+            if img is noise:
+                np.testing.assert_allclose(got[2], want[2], rtol=1e-4,
+                                           atol=0)
+    par = K.pack_params(torch.tensor(pred, device=cuda_device), 64, z_window)
+    kept = K.cull_points(par, 64, 64, 1.5, 260.0)
+    assert 0 < kept < 0.3 * K.window_points(par, 64, 64)
 
 
 # ---- K4/K5, the explicit loss ----------------------------------------------
