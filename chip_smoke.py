@@ -24,8 +24,9 @@ user calls:
   K2;
 * supervised training with the c4c recipe (phases 11-14): K4/K5 against
   the emulation of their algorithm and the plain loss at the recipe's
-  shape, one ``explicit_sym`` step with ``remat`` on the card against the
-  CPU's, the c4 artifact's validation loss against the JAX package's, and
+  shape, K5's sums against K4's (bit for bit), one ``explicit_sym`` step
+  with ``remat`` on the card against the CPU's, the c4 artifact's
+  validation loss against the JAX package's, and
   ``python -m sqtpu_torch.train`` with the c4c recipe (twice), with the
   launch counts of K3, K4 and K5 and the step's per-stage time;
 * training over two ranks that share the card (phases 15-17): K6 (K1/K2
@@ -152,8 +153,8 @@ EXPLICIT_WINDOW_RTOL, EXPLICIT_WINDOW_ATOL = 1e-3, 5e-4
 # The plain loss materializes (B, 129³) float32 intermediates, dozens of
 # them under autograd: it runs in chunks of this many samples.
 PLAIN_CHUNK = 16
-# fp32 operations per in-window lattice point, each logf/expf counted as
-# one, read off sqtpu_torch/csrc/explicit.cu and sq_field.cuh: two field
+# fp32 operations per in-window lattice point of the first port's kernels,
+# each logf/expf counted as one, read off their sources: two field
 # chains (2 × 49) and two sigmoids (2 × 6), d, and d² into the sum (2):
 # K5 113; K4 adds gF (5) and the gradient chain (108): 226. The window's
 # points at these counts give `bound_ms_window`, the yardstick kept from
@@ -871,10 +872,16 @@ def phase_explicit(dev) -> tuple[dict, dict]:
                                                z_window))):
             raise RuntimeError("K4/K5 are not bit-identical run to run "
                                f"(z_window={z_window})")
-        rel45 = rel_err(float(k5), float(got[0]))
-        if not rel45 <= VALUE_RTOL:
-            raise RuntimeError(f"K5 {float(k5)!r} against K4 "
-                               f"{float(got[0])!r} (rel {rel45:.2e})")
+        # K5 is K4's body without the gradient: its per-sample sums are
+        # K4's, bit for bit (launched apart from the wrappers' counts)
+        par_t, par_p = KE.pack_params(truths, pred, n, z_window,
+                                      KE.default_margin(sharp))
+        s4, _ = KE._launch_fused(par_t, par_p, n, sharp)
+        s5 = KE._launch_fwd(par_t, par_p, n, sharp)
+        rel45 = float(((s5 - s4).abs() / s4.abs()).max())
+        if not (torch.equal(s5, s4) and torch.equal(k5, got[0])):
+            raise RuntimeError(f"K5's sums are not K4's (z_window="
+                               f"{z_window}, largest rel gap {rel45:.2e})")
         worst["k5_vs_k4"] = max(worst["k5_vs_k4"], rel45)
         emu = value_and_grad(KE.explicit_loss_emulated, z_window)
         refs = [("emulation", emu, VALUE_RTOL, GRAD_ATOL)]
@@ -894,8 +901,9 @@ def phase_explicit(dev) -> tuple[dict, dict]:
                 what + ", pred gradient", got[1], ref[1], GRAD_RTOL, gatol))
         progress(f"K4/K5 z_window={z_window} B={C4C_B} N={n} sharp {sharp}: "
                  f"loss {float(got[0]):.7f} (plain, full sweep "
-                 f"{float(plain[0]):.7f}), bit-identical twice, within "
-                 "tolerance of the emulation and the plain loss")
+                 f"{float(plain[0]):.7f}), bit-identical twice, K5's sums "
+                 "K4's bits, within tolerance of the emulation and the "
+                 "plain loss")
 
     # times at the main path's setting (windowed)
     par_t, par_p = KE.pack_params(truths, pred, n, True,
@@ -1613,20 +1621,26 @@ def phase_launcher(card: str) -> dict:
     return out
 
 
-def ptxas_registers(name: str, entry: str):
-    """Registers ptxas gave a kernel of a source in this run's build (None
-    when the library was not built by this process)."""
+def registers_of(ptxas: str, entry: str):
+    """Registers a kernel got in ``ptxas -v`` output (None if absent)."""
     import re
 
-    from sqtpu_torch.ops.kernels import _build
-
     current = ""
-    for line in _build.build_log[name]["ptxas"].splitlines():
+    for line in ptxas.splitlines():
         if "Compiling entry" in line:
             current = line
         elif entry in current and "registers" in line:
             return int(re.search(r"Used (\d+) registers", line).group(1))
     return None
+
+
+def ptxas_registers(name: str, entry: str):
+    """Registers ptxas gave a kernel of a source in this run's build (None
+    when the library was not built by this process)."""
+    from sqtpu_torch.ops.kernels import _build
+
+    log = _build.build_log.get(name)
+    return registers_of(log["ptxas"], entry) if log else None
 
 
 def print_ptxas(name: str) -> None:
@@ -1748,7 +1762,9 @@ def main() -> int:
         {"name": "explicit_fwd", "route": "cuda",
          "source": "sqtpu_torch/csrc/explicit.cu",
          "replaces": "sqtpu/ops/kernels/explicit.py:150",
-         "launches": k5, **efwd_row},
+         "launches": k5,
+         "registers": ptxas_registers("explicit", "explicit_fwd_kernel"),
+         **efwd_row},
         # rank 0's launches in phase 17's 2-epoch run, forward and backward
         {"name": "implicit_slab", "route": "cuda",
          "source": "sqtpu_torch/csrc/implicit.cu",

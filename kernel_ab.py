@@ -23,8 +23,15 @@ bit for bit (``identical``) and relative. Always, this checkout's
 ``implicit.cu`` is also built with ``-DSQTPU_IMPLICIT_CULL=0`` (every
 pixel sweeps its whole window), and K1/K2 with the cull must give the
 bits of K1/K2 without it on phase 7's and phase 15's inputs, windowed and
-not, with a NaN cotangent and a NaN image pixel; else it raises. Prints
-one JSON line with the card's name and power limit.
+not, with a NaN cotangent and a NaN image pixel; and ``explicit.cu`` with
+``-DSQTPU_EXPLICIT_CULL=0``, and K4 (sums and gradient) and K5 (sums)
+with the cull must give the bits of their uncut build on phase 11's
+inputs, windowed and not, with a NaN pred size, and at sharpness 5 and
+60; else it raises. K5's sums are compared with K4's (``k5.vs_k4``),
+and the share of their warps' lane-slots that evaluate a point is
+counted (``k5.lanes``). Prints one JSON line with the card's name and
+power limit and the registers ptxas gave each explicit kernel it built
+apart (the other checkout's, the uncut build).
 """
 
 from __future__ import annotations
@@ -48,6 +55,8 @@ from sqtpu_torch.ops.kernels import implicit as K
 
 
 BIND = {"hardrender": H.bind, "implicit": K.bind, "explicit": KE.bind}
+EXPLICIT_ENTRIES = ("explicit_fused_kernel", "explicit_fwd_kernel")
+REGISTERS: dict = {}  # "<name>_<tag>" -> {explicit entry: registers}
 
 
 def build_lib(root: str, name: str, out_dir: str, tag: str,
@@ -56,11 +65,14 @@ def build_lib(root: str, name: str, out_dir: str, tag: str,
     checkout's nvcc flags (and ``defines``) into ``out_dir``, loaded and
     typed by this package's ``bind``."""
     out = os.path.join(out_dir, f"lib{name}_{tag}.so")
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, *defines, "-o",
-                    out, os.path.join(root, "sqtpu_torch", "csrc",
-                                      name + ".cu")],
-                   check=True, capture_output=True,
-                   timeout=_build.NVCC_TIMEOUT_S)
+    res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, *defines,
+                          "-o", out, os.path.join(root, "sqtpu_torch", "csrc",
+                                                  name + ".cu")],
+                         check=True, capture_output=True, text=True,
+                         timeout=_build.NVCC_TIMEOUT_S)
+    if name == "explicit":
+        REGISTERS[f"{name}_{tag}"] = {e: S.registers_of(res.stderr, e)
+                                      for e in EXPLICIT_ENTRIES}
     return BIND[name](ctypes.CDLL(out))
 
 
@@ -168,6 +180,74 @@ def uncut_rows(cut, uncut, dev) -> dict:
     return rows
 
 
+def explicit_cut_against_uncut(cut, uncut, par_t, par_p, n: int,
+                               sharp: float) -> dict:
+    """K4 and K5 of ``cut`` (this checkout's kernels) and of ``uncut`` (the
+    same source built with the cull off) on the same rows; raises unless
+    K4's sums and gradient and K5's sums are the same bits. Returns the
+    uncut kernels' times, the samples whose K4 and K5 sums are NaN, and
+    whether K5's sums are K4's."""
+    (sa, ga), (sb, gb) = (KE._launch_fused(par_t, par_p, n, sharp, lib)
+                          for lib in (cut, uncut))
+    fa, fb = (KE._launch_fwd(par_t, par_p, n, sharp, lib)
+              for lib in (cut, uncut))
+    for what, a, b in (("K4 sums", sa, sb), ("K4 gradient", ga, gb),
+                       ("K5 sums", fa, fb)):
+        if not same_bits(a, b):
+            raise RuntimeError(f"the cut kernels' {what} differ from the "
+                               "uncut sweep's")
+    return {"uncut_fused_ms": S.cuda_ms(lambda: KE._launch_fused(
+                par_t, par_p, n, sharp, uncut)),
+            "uncut_fwd_ms": S.cuda_ms(lambda: KE._launch_fwd(
+                par_t, par_p, n, sharp, uncut)),
+            "nan_rows": torch.nonzero(torch.isnan(sa) & torch.isnan(fa)
+                                      ).flatten().tolist(),
+            "k5_is_k4": same_bits(fa, sa)}
+
+
+def explicit_uncut_rows(cut, uncut, dev) -> dict:
+    """K4/K5's cull against their uncut sweep, bit for bit: phase 11's
+    inputs windowed and the full window, a pred row with a NaN size (the
+    row must sweep its whole window and give NaN on both sides), and
+    sharpness 5 and 60 (a wider and a narrower box)."""
+    truths, pred = S.explicit_inputs(dev)
+    n = S.EXPLICIT_N
+    rows = {}
+    for sharp in (S.EXPLICIT_SHARP, 5.0, 60.0):
+        for z_window in ((True, False) if sharp == S.EXPLICIT_SHARP
+                         else (True,)):
+            par_t, par_p = KE.pack_params(truths, pred, n, z_window,
+                                          KE.default_margin(sharp))
+            rows[f"sharp{sharp:g}_{'window' if z_window else 'full'}"] = \
+                explicit_cut_against_uncut(cut, uncut, par_t, par_p, n,
+                                           sharp)
+    sharp = S.EXPLICIT_SHARP
+    par_t, par_p = KE.pack_params(truths, pred, n, True,
+                                  KE.default_margin(sharp))
+    par_p[3, 0] = float("nan")
+    rows["nan_size"] = explicit_cut_against_uncut(cut, uncut, par_t, par_p,
+                                                  n, sharp)
+    if rows["nan_size"]["nan_rows"] != [3]:
+        raise RuntimeError("a NaN pred size did not give NaN sums in its "
+                           "row alone")
+    return rows
+
+
+def warp_lanes(par_t, par_p, n: int, sharp: float, cull: bool) -> dict:
+    """The lattice points K4/K5 evaluate and the lane-slots their warps
+    take (a warp of 8 (x) × 4 (y) columns runs as long as its longest
+    column; columns past N idle), from the emulation's column planes."""
+    col = KE._columns(par_t, par_p, n, sharp, cull)
+    m = n + 1
+    side = -(-m // 16) * 16
+    span = (col.j1 - col.j0 + 1).clamp(min=0).reshape(-1, m, m)
+    tiled = span.new_zeros((span.shape[0], side, side))
+    tiled[:, :m, :m] = span
+    longest = tiled.reshape(-1, side // 8, 8, side // 4, 4).amax(dim=(2, 4))
+    points, slots = int(span.sum()), 32 * int(longest.sum())
+    return {"points": points, "lane_slots": slots, "share": points / slots}
+
+
 def in_turns(fns: dict) -> dict:
     """Each function's times, in turns other, this, this, other (or this
     twice)."""
@@ -193,8 +273,12 @@ def main(argv=None) -> dict:
                 pair["other"] = build_lib(args.other, name, tmp, "other")
         uncut = build_lib(here, "implicit", tmp, "uncut",
                           "-DSQTPU_IMPLICIT_CULL=0")
+        uncut_explicit = build_lib(here, "explicit", tmp, "uncut",
+                                   "-DSQTPU_EXPLICIT_CULL=0")
         out = {"card": S.card_line(), "k3": {}, "k4": {}, "k5": {},
-               "uncut": uncut_rows(libs["implicit"]["this"], uncut, dev)}
+               "uncut": uncut_rows(libs["implicit"]["this"], uncut, dev),
+               "explicit_uncut": explicit_uncut_rows(
+                   libs["explicit"]["this"], uncut_explicit, dev)}
 
         with np.load(S.TRUTHS) as d:
             p = torch.as_tensor(d["true_params"][:S.BATCH].astype(np.float32),
@@ -237,6 +321,14 @@ def main(argv=None) -> dict:
         out["k5"]["launch_ms"] = in_turns({k: (
             lambda lib=lib: KE._launch_fwd(par_t, par_p, n, sharp, lib))
             for k, lib in k4.items()})
+        s4, _ = KE._launch_fused(par_t, par_p, n, sharp, k4["this"])
+        s5 = KE._launch_fwd(par_t, par_p, n, sharp, k4["this"])
+        out["k5"]["lanes"] = {
+            "cut": warp_lanes(par_t, par_p, n, sharp, True),
+            "uncut": warp_lanes(par_t, par_p, n, sharp, False)}
+        out["k5"]["vs_k4"] = {
+            "max_rel_sum": float(((s5 - s4).abs() / s4.abs()).max()),
+            "identical": same_bits(s5, s4)}
         if args.other:
             (sa, ga), (sb, gb) = (KE._launch_fused(par_t, par_p, n, sharp,
                                                    k4[k])
@@ -253,6 +345,7 @@ def main(argv=None) -> dict:
                                               / s5b.abs()).max())
             out["k5"]["identical"] = bool(torch.equal(s5a, s5b))
         torch.cuda.synchronize()
+    out["registers"] = REGISTERS
     print(json.dumps(out), flush=True)
     return out
 

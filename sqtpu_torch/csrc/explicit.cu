@@ -20,41 +20,41 @@
 // parameters carry in slots 17-18 (the union of both shapes' z windows, or
 // the full [0, N]).
 //
-// K5's design. One thread per (x, y) lattice column of one sample; the
-// grid is (column blocks, batch), with (N+1)² columns per sample. A block
-// reads its sample's two 24-float parameter rows into shared memory once;
-// each thread loops over its sample's window with the squared-difference
-// sum in a register. The TPU kernel's 128-lane padding, its validity mask,
-// its tiling of several samples per program and its 256-sample chunks
-// (limits of the TPU's vector and scalar memories) have no counterpart: one
-// launch covers any batch. Reductions are deterministic, as in implicit.cu:
-// a fixed shuffle tree inside each warp, the warps in order into a (batch,
-// blocks[, 17]) partial buffer, then sum_partials in block order. No float
-// atomics, so two runs give the same bits.
-//
-// What bounds them on this card: operations. Per in-window point K5
-// evaluates two fields (11 logf/expf each, with the sigmoids) and K4 adds
-// the 17-term gradient chain (4 more expf); the bytes are two (B, 24)
-// parameter rows in and B or B·24 floats out. Accurate logf/expf (no
-// fast-math, for parity with the reference) in both.
-//
-// K4's design for this card (the first port, K5's design with the JAX
-// kernel's 17-term chain, took 36 ms on one H100 at the c4c shape: 91
-// registers, about 31 IEEE divisions a point, 2 blocks a SM):
+// The design for this card, one body for both kernels (explicit_body,
+// templated on whether the gradient is taken; the first port's K4, a
+// thread per column that divided at every point, took 36 ms on one H100
+// 80GB HBM3, 700.00 W at the c4c shape, and its K5 6.9 ms):
+// * One thread per (x, y) lattice column of one sample; the grid is
+//   (column blocks, batch). A block reads its sample's two 24-float
+//   parameter rows into shared memory once. The TPU kernel's 128-lane
+//   padding, its validity mask, its tiling of several samples per program
+//   and its 256-sample chunks (limits of the TPU's vector and scalar
+//   memories) have no counterpart: one launch covers any batch.
 // * Per-sample constants once. The block prologue computes both rows'
 //   reciprocals and slopes (sq_field.cuh make_recip) into shared memory;
-//   the per-point chain (field_terms_lin, sep_grad_step) multiplies by
-//   them and divides only in the two sigmoids.
+//   the per-point chain (field_terms_lin, and K4's sep_grad_step)
+//   multiplies by them and divides only in the two sigmoids.
 // * Body coordinates linear in z along a column: u = u0 + cu·z.
-// * Separable sums: 11 running sums a column (SepAcc) instead of 17,
-//   scaled by X/a, Y/a and −1/a once at the column's end (sep_finish),
-//   before the same fixed-order reduction.
+// * K4's separable sums: 11 running sums a column (SepAcc) instead of 17,
+//   scaled by X/a, Y/a and −1/a once at the column's end (sep_finish).
 // * The exact-zero cull (below): a column sweeps only the planes where a
 //   point can add anything.
 // * A warp is an 8 × 4 tile of columns and a block a 16 × 16 tile (2 × 4
 //   warps), so that a warp's columns, and a block's, have similar z
-//   intervals; __launch_bounds__(256, 4) caps a thread at 64 registers for
-//   4 blocks a SM.
+//   intervals.
+// * K5 is the body without the gradient: the same columns, planes and
+//   per-point arithmetic in the same order, so its per-sample sums are
+//   K4's.
+// Reductions are deterministic, as in implicit.cu: a fixed shuffle tree
+// inside each warp, the warps in order into a (batch, blocks[, 17])
+// partial buffer, then sum_partials in block order. No float atomics, so
+// two runs give the same bits.
+//
+// What bounds them on this card: operations. Per evaluated point both
+// evaluate two fields and two sigmoids (11 logf/expf) and K4 adds the
+// 17-term gradient chain (4 more expf); the bytes are two (B, 24)
+// parameter rows in and B or B·24 floats out. Accurate logf/expf (no
+// fast-math, for parity with the reference).
 //
 // The exact-zero cull (sq_field.cuh, shared with K1/K2): where both
 // shapes' occupancies are exactly 0.0f at a point, d = 0 and gF = 2·d·
@@ -67,28 +67,20 @@
 
 #include "sq_field.cuh"
 
+// Built with -DSQTPU_EXPLICIT_CULL=0, every column sweeps its sample's
+// whole window in both kernels: the uncut sweep that `kernel_ab.py` holds
+// the culled one against, bit for bit.
+#ifndef SQTPU_EXPLICIT_CULL
+#define SQTPU_EXPLICIT_CULL 1
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-struct Column {
-  bool live;
-  float X, Y;
-};
-
-// Column idx = x·(N+1) + y of the explicit lattice, spacing 1/N.
-__device__ __forceinline__ Column column(int n, float inv) {
-  Column c;
-  const int m = n + 1;
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  c.live = idx < m * m;
-  const int xi = idx / m;
-  const int yi = idx - xi * m;
-  c.X = coord(xi, inv);
-  c.Y = coord(yi, inv);
-  return c;
-}
+constexpr int kBlockTile = 16;      // a block's columns: 16 × 16
+constexpr int kFusedMinBlocks = 4;  // K4's blocks a SM: 64 registers
+constexpr int kFwdMinBlocks = 4;    // K5's: 8 ran slower on one H100
 
 __device__ __forceinline__ void load_rows(const float* __restrict__ par_t,
                                           const float* __restrict__ par_p,
@@ -100,58 +92,25 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ par_t,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
-explicit_fwd_kernel(const float* __restrict__ par_t,
-                    const float* __restrict__ par_p,
-                    float* __restrict__ partial, int n, float sharp) {
-  __shared__ float st[kParStride], sp[kParStride];
-  __shared__ float red[kWarps];
-  const int b = blockIdx.y;
-  load_rows(par_t, par_p, st, sp, b);
-  const int lo = (int)sp[kSlotJLo], hi = (int)sp[kSlotJHi];
-  const float inv = (float)(1.0 / (double)n);
-  const Column c = column(n, inv);
-
-  float sum = 0.0f;
-  if (c.live) {
-    const Frame ft = load_frame(st), fp = load_frame(sp);
-    for (int j = lo; j <= hi; ++j) {
-      const float z = coord(j, inv);
-      const float d = occupancy(field_terms(ft, c.X, c.Y, z).F, sharp) -
-                      occupancy(field_terms(fp, c.X, c.Y, z).F, sharp);
-      sum += d * d;
-    }
-  }
-  sum = warp_sum(sum);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = sum;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int k = 0; k < kWarps; ++k) s += red[k];
-    partial[(size_t)b * gridDim.x + blockIdx.x] = s;
-  }
-}
-
-// ---- K4 -------------------------------------------------------------------
-
-constexpr int kFusedMinBlocks = 4;  // blocks a SM: 64 registers a thread
-constexpr int kBlockTile = 16;      // a block's columns: 16 × 16
-__global__ void __launch_bounds__(kThreads, kFusedMinBlocks)
-explicit_fused_kernel(const float* __restrict__ par_t,
-                      const float* __restrict__ par_p,
-                      float* __restrict__ partial_sum,
-                      float* __restrict__ partial_grad, int n, float sharp) {
+// One block of K4 (kGrad) or K5: the sums of d² over its 16 × 16 columns
+// into partial_sum[b, block], and with kGrad the 17 gradient sums into
+// partial_grad[b, block, :].
+template <bool kGrad>
+__device__ __forceinline__ void explicit_body(
+    const float* __restrict__ par_t, const float* __restrict__ par_p,
+    float* __restrict__ partial_sum, float* __restrict__ partial_grad,
+    int n, float sharp) {
+  constexpr int kSums = kGrad ? kNPar + 1 : 1;  // the sum last
   __shared__ float st[kParStride], sp[kParStride];
   __shared__ Recip kr[2];
   __shared__ float s_bb;  // the cull's box half-width; 0: no cull
-  __shared__ float red[kNPar + 1][kWarps];
+  __shared__ float red[kSums][kWarps];
   const int b = blockIdx.y;
   load_rows(par_t, par_p, st, sp, b);
   if (threadIdx.x < 2) kr[threadIdx.x] = make_recip(threadIdx.x ? sp : st);
   if (threadIdx.x == 2) {
-    const bool ok = sharp > 0.0f && sharp <= FLT_MAX && cull_sound(st) &&
-                    cull_sound(sp);
+    const bool ok = SQTPU_EXPLICIT_CULL && sharp > 0.0f && sharp <= FLT_MAX &&
+                    cull_sound(st) && cull_sound(sp);
     s_bb = ok ? box_half_width(sharp) : 0.0f;
   }
   __syncthreads();
@@ -198,25 +157,29 @@ explicit_fused_kernel(const float* __restrict__ par_t,
       const float occ_p = occupancy(t.F, sharp);
       const float d = occ_t - occ_p;
       sum += d * d;
-      const float gF = 2.0f * d * sharp * occ_p * (1.0f - occ_p);
-      sep_grad_step(s, t, gF, kp, z);
+      if constexpr (kGrad) {
+        const float gF = 2.0f * d * sharp * occ_p * (1.0f - occ_p);
+        sep_grad_step(s, t, gF, kp, z);
+      }
     }
   }
-  float acc[kNPar];
-  sep_finish(acc, s, kp, X, Y);
+  if constexpr (kGrad) {
+    float acc[kNPar];
+    sep_finish(acc, s, kp, X, Y);
 #pragma unroll
-  for (int i = 0; i < kNPar; ++i) {
-    const float v = warp_sum(acc[i]);
-    if (lane == 0) red[i][warp] = v;
+    for (int i = 0; i < kNPar; ++i) {
+      const float v = warp_sum(acc[i]);
+      if (lane == 0) red[i][warp] = v;
+    }
   }
   sum = warp_sum(sum);
-  if (lane == 0) red[kNPar][warp] = sum;
+  if (lane == 0) red[kSums - 1][warp] = sum;
   __syncthreads();
-  if (threadIdx.x <= kNPar) {
+  if (threadIdx.x < kSums) {
     float t = 0.0f;
     for (int k = 0; k < kWarps; ++k) t += red[threadIdx.x][k];
     const size_t blk = (size_t)b * gridDim.x + blockIdx.x;
-    if (threadIdx.x < kNPar) {
+    if (kGrad && threadIdx.x < kNPar) {
       partial_grad[blk * kNPar + threadIdx.x] = t;
     } else {
       partial_sum[blk] = t;
@@ -224,23 +187,36 @@ explicit_fused_kernel(const float* __restrict__ par_t,
   }
 }
 
-int fused_blocks(int n) {
-  const int tiles = (n + 1 + kBlockTile - 1) / kBlockTile;
-  return tiles * tiles;
+// K4: the sums and the gradient.
+__global__ void __launch_bounds__(kThreads, kFusedMinBlocks)
+explicit_fused_kernel(const float* __restrict__ par_t,
+                      const float* __restrict__ par_p,
+                      float* __restrict__ partial_sum,
+                      float* __restrict__ partial_grad, int n, float sharp) {
+  explicit_body<true>(par_t, par_p, partial_sum, partial_grad, n, sharp);
 }
 
-int blocks_per_sample(int n) {
-  return ((n + 1) * (n + 1) + kThreads - 1) / kThreads;
+// K5: the sums alone.
+__global__ void __launch_bounds__(kThreads, kFwdMinBlocks)
+explicit_fwd_kernel(const float* __restrict__ par_t,
+                    const float* __restrict__ par_p,
+                    float* __restrict__ partial_sum, int n, float sharp) {
+  explicit_body<false>(par_t, par_p, partial_sum, nullptr, n, sharp);
+}
+
+int column_blocks(int n) {
+  const int tiles = (n + 1 + kBlockTile - 1) / kBlockTile;
+  return tiles * tiles;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Thread blocks per sample of K5 and of K4: the widths of the wrapper's
-// partial buffers.
-int sqtpu_explicit_blocks(int n) { return blocks_per_sample(n); }
-int sqtpu_explicit_fused_blocks(int n) { return fused_blocks(n); }
+// Thread blocks per sample of K5 and of K4 (the same tiling): the widths
+// of the wrapper's partial buffers.
+int sqtpu_explicit_blocks(int n) { return column_blocks(n); }
+int sqtpu_explicit_fused_blocks(int n) { return column_blocks(n); }
 
 // K5. par_t, par_p: (batch, 24), partial: (batch, blocks), sums: (batch,),
 // all float32 on the device. Launches on `stream`; returns the first
@@ -248,7 +224,7 @@ int sqtpu_explicit_fused_blocks(int n) { return fused_blocks(n); }
 int sqtpu_explicit_fwd(const void* par_t, const void* par_p, void* partial,
                        void* sums, int batch, int n, double sharp,
                        void* stream) {
-  const int blocks = blocks_per_sample(n);
+  const int blocks = column_blocks(n);
   cudaStream_t s = (cudaStream_t)stream;
   explicit_fwd_kernel<<<dim3(blocks, batch), kThreads, 0, s>>>(
       (const float*)par_t, (const float*)par_p, (float*)partial, n,
@@ -267,7 +243,7 @@ int sqtpu_explicit_fused(const void* par_t, const void* par_p,
                          void* partial_sum, void* partial_grad, void* sums,
                          void* dpar, int batch, int n, double sharp,
                          void* stream) {
-  const int blocks = fused_blocks(n);
+  const int blocks = column_blocks(n);
   cudaStream_t s = (cudaStream_t)stream;
   explicit_fused_kernel<<<dim3(blocks, batch), kThreads, 0, s>>>(
       (const float*)par_t, (const float*)par_p, (float*)partial_sum,

@@ -18,10 +18,9 @@
 // jnp.minimum does. Accurate logf/expf (no fast-math), for parity with the
 // reference.
 //
-// field_terms divides by a and e at every point (K5). The redesigned
-// kernels (K1, K2, K4) use field_terms_lin, sep_grad_step and sep_finish
-// below: per-sample reciprocals, body coordinates linear in z along a
-// lattice column, and 11 running sums a column for the 17 terms.
+// The kernels (K1, K2, K4, K5) use field_terms_lin, sep_grad_step and
+// sep_finish below: per-sample reciprocals, body coordinates linear in z
+// along a lattice column, and 11 running sums a column for the 17 terms.
 
 #pragma once
 
@@ -38,26 +37,9 @@ constexpr float kTiny = 1.1754944e-38f;  // FLT_MIN
 constexpr float kClamp = 30.0f;
 constexpr float kExpClamp = 1.0686475e13f;  // exp(30)
 
-struct Frame {
-  float a1, a2, a3, e1, e2, t0, t1, t2;
-  float r[9];
-  float e21;  // e2 / e1
-};
-
 struct Terms {
   float u, v, w, x2g, y2g, z2g, lx, ly, lz, lg, lh, F;
 };
-
-__device__ __forceinline__ Frame load_frame(const float* p) {
-  Frame f;
-  f.a1 = p[0]; f.a2 = p[1]; f.a3 = p[2];
-  f.e1 = p[3]; f.e2 = p[4];
-  f.t0 = p[5]; f.t1 = p[6]; f.t2 = p[7];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) f.r[i] = p[8 + i];
-  f.e21 = f.e2 / f.e1;
-  return f;
-}
 
 // Lattice index -> coordinate: 0 maps to 1e-4, k to k · inv (the spacing).
 __device__ __forceinline__ float coord(int k, float inv) {
@@ -66,28 +48,6 @@ __device__ __forceinline__ float coord(int k, float inv) {
 
 __device__ __forceinline__ float guard(float s) {
   return s + (s == 0.0f ? 1e-4f : 0.0f);
-}
-
-__device__ __forceinline__ Terms field_terms(const Frame& f, float X,
-                                             float Y, float z) {
-  Terms t;
-  t.u = (f.r[0] * X + f.r[1] * Y + f.r[2] * z - f.t0) / f.a1;
-  t.v = (f.r[3] * X + f.r[4] * Y + f.r[5] * z - f.t1) / f.a2;
-  t.w = (f.r[6] * X + f.r[7] * Y + f.r[8] * z - f.t2) / f.a3;
-  t.x2g = guard(t.u * t.u);
-  t.y2g = guard(t.v * t.v);
-  t.z2g = guard(t.w * t.w);
-  t.lx = logf(t.x2g);
-  t.ly = logf(t.y2g);
-  t.lz = logf(t.z2g);
-  const float A = expf(t.lx / f.e2);
-  const float B = expf(t.ly / f.e2);
-  const float C = expf(t.lz / f.e1);
-  t.lg = logf(A + B + kTiny);
-  const float E = expf(t.lg * f.e21);
-  t.lh = logf(E + C + kTiny);
-  t.F = expf(t.lh * f.e1);
-  return t;
 }
 
 __device__ __forceinline__ float occupancy(float F, float sharp) {
@@ -131,9 +91,9 @@ __global__ void sum_partials(const float* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------------------
-// The redesigned chain (K1, K2, K4): the field and gradient above, with
-// every divisor replaced by a reciprocal computed once per sample and the
-// body coordinates linear in z along a lattice column.
+// The chain of the kernels: the field and gradient of the comment at the
+// top, with every divisor replaced by a reciprocal computed once per sample and the body
+// coordinates linear in z along a lattice column.
 // ---------------------------------------------------------------------------
 
 // Per-sample constants of one frame row.
@@ -168,7 +128,7 @@ __device__ __forceinline__ Recip make_recip(const float* p) {
   return k;
 }
 
-// field_terms on body coordinates the caller computed (u = u0 + cu·z).
+// The field chain on body coordinates the caller computed (u = u0 + cu·z).
 __device__ __forceinline__ Terms field_terms_lin(const Recip& k, float u,
                                                  float v, float w) {
   Terms t;
@@ -258,7 +218,7 @@ __device__ __forceinline__ void sep_finish(float* acc, const SepAcc& s,
 }
 
 // ---------------------------------------------------------------------------
-// The exact-zero cull (K1, K2, K4). In exact arithmetic F ≥ max(x2g, y2g,
+// The exact-zero cull (K1, K2, K4, K5). In exact arithmetic F ≥ max(x2g, y2g,
 // z2g) ≥ max(u², v², w²) for every e > 0 (each power is monotone, every
 // term is non-negative). Where sharp·(F − 1) > 88.73 > ln(FLT_MAX) =
 // 88.7228, expf overflows and the occupancy 1/(1 + expf(.)) is exactly

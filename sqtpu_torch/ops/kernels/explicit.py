@@ -30,14 +30,14 @@ N < 8 to XLA; the CUDA kernels take every N ≥ 2 or raise.
 
 Beside the kernels, :func:`emulate_fwd` and :func:`emulate_fused` are a
 torch emulation of their own algorithm, the analogue of Pallas interpret
-mode: K5's sweep with the shared field chain, and K4's with the per-sample
-reciprocals, the body coordinates linear in z, the 11 running sums a
-column and the exact-zero cull (``csrc/explicit.cu``), from the helpers
-shared with the implicit loss's emulation (``sq_field.py``, the
-counterpart of ``csrc/sq_field.cuh``). The tests hold it
-against the JAX kernels in interpret mode and against autograd of the
-plain loss; on the card the kernels are held against it. The main path
-never calls it.
+mode: one sweep for both, as the kernels share one body, with the
+per-sample reciprocals, the body coordinates linear in z and the
+exact-zero cull (``csrc/explicit.cu``); K4's adds the 11 running sums a
+column of the gradient. It is built from the helpers shared with the
+implicit loss's emulation (``sq_field.py``, the counterpart of
+``csrc/sq_field.cuh``). The tests hold it against the JAX kernels in
+interpret mode and against autograd of the plain loss; on the card the
+kernels are held against it. The main path never calls it.
 """
 
 from __future__ import annotations
@@ -56,9 +56,9 @@ from sqtpu_torch.ops.kernels.implicit import (
     _zval, check_operand, frame_params,
 )
 from sqtpu_torch.ops.kernels.sq_field import (
-    N_PAR, SEP_SUMS, _body_origin, _box_planes, _field_terms,
-    _field_terms_lin, _occ, _occupancy, _recip, _Recip, _sep_finish,
-    _sep_grad_step, box_half_width, cull_sound,
+    N_PAR, SEP_SUMS, _body_origin, _box_planes, _field_terms_lin,
+    _occupancy, _recip, _Recip, _sep_finish, _sep_grad_step,
+    box_half_width, cull_sound,
 )
 
 SHARP = 5.0      # the reference's occupancy sharpness
@@ -159,24 +159,6 @@ def pack_params(true_p: torch.Tensor, pred_p: torch.Tensor, n: int,
 # The emulation of the kernels' algorithm (the analogue of interpret mode)
 # ---------------------------------------------------------------------------
 
-def emulate_fwd(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
-                sharp: float) -> torch.Tensor:
-    """K5's algorithm in torch: two (B, 24) rows -> (B,) sums of
-    (occ_t − occ_p)² over each sample's window; the dtype is the rows'.
-    The explicit lattice is the implicit one with N+1 points a side
-    (spacing 1/N)."""
-    sw = _sweep_setup(par_p, n + 1, n + 1)
-    pp_t = [par_t[:, i:i + 1] for i in range(N_PAR)]
-    total = torch.zeros_like(sw.X)
-    for j in range(int(sw.lo.min()), int(sw.hi.max()) + 1):
-        active = (sw.lo <= j) & (j <= sw.hi)
-        z = _zval(j, sw.inv, par_p)
-        d = (_occ(_field_terms(pp_t, sw.X, sw.Y, z)["F"], sharp)
-             - _occ(_field_terms(sw.pp, sw.X, sw.Y, z)["F"], sharp))
-        total = total + torch.where(active, d * d, 0.0)
-    return total.sum(dim=-1)
-
-
 class _Columns(NamedTuple):
     X: torch.Tensor       # (B, (N+1)²) column coordinates
     Y: torch.Tensor
@@ -191,9 +173,11 @@ class _Columns(NamedTuple):
 
 def _columns(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
              sharp: float, cull: bool) -> _Columns:
-    """K4's per-sample constants, per-column body origins and planes: the
-    sample's window [j_lo, j_hi], cut by the exact-zero cull to the hull
-    of both shapes' boxes where the rows prove it sound."""
+    """The kernels' per-sample constants, per-column body origins and
+    planes: the sample's window [j_lo, j_hi], cut by the exact-zero cull to
+    the hull of both shapes' boxes where the rows prove it sound. The
+    explicit lattice is the implicit one with N+1 points a side (spacing
+    1/N)."""
     sw = _sweep_setup(par_p, n + 1, n + 1)
     kt, kp = _recip(par_t), _recip(par_p)
     ot = _body_origin(par_t, kt, sw.X, sw.Y)
@@ -210,12 +194,11 @@ def _columns(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
     return _Columns(sw.X, sw.Y, sw.inv, kt, kp, ot, op, j0, j1)
 
 
-def emulate_fused(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
-                  sharp: float, cull: bool = True):
-    """K4's algorithm in torch: -> the (B,) sums and the (B, 24) gradient
-    of each sum with respect to pred's frame scalars (slots 17-23 zero).
-    ``cull=False`` sweeps each sample's whole window with the same
-    arithmetic (the cull skips only points that add exactly 0)."""
+def _sweep(par_t: torch.Tensor, par_p: torch.Tensor, n: int, sharp: float,
+           cull: bool, grad: bool):
+    """The kernels' one body: the (B,) sums of (occ_t − occ_p)² over each
+    column's planes and, with ``grad``, the (B, 24) gradient of each sum
+    with respect to pred's frame scalars (slots 17-23 zero)."""
     col = _columns(par_t, par_p, n, sharp, cull)
     kt, kp = col.kt, col.kp
     total = torch.zeros_like(col.X)
@@ -232,18 +215,40 @@ def emulate_fused(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
         occ_p = _occupancy(T["F"], sharp)
         d = occ_t - occ_p
         total = total + torch.where(active, d * d, 0.0)
-        gF = 2.0 * d * sharp * occ_p * (1.0 - occ_p)
-        _sep_grad_step(acc, T, gF, kp, z, active)
+        if grad:
+            gF = 2.0 * d * sharp * occ_p * (1.0 - occ_p)
+            _sep_grad_step(acc, T, gF, kp, z, active)
+    sums = total.sum(dim=-1)
+    if not grad:
+        return sums
     dpar = torch.zeros_like(par_p)
     dpar[:, :N_PAR] = torch.stack(
         [t.sum(dim=-1) for t in _sep_finish(acc, kp, col.X, col.Y)], dim=-1)
-    return total.sum(dim=-1), dpar
+    return sums, dpar
+
+
+def emulate_fwd(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
+                sharp: float, cull: bool = True) -> torch.Tensor:
+    """K5's algorithm in torch: two (B, 24) rows -> the (B,) sums of
+    (occ_t − occ_p)² over each sample's window, in the rows' dtype; the
+    sums of :func:`emulate_fused`, bit for bit. ``cull=False`` sweeps each
+    sample's whole window with the same arithmetic."""
+    return _sweep(par_t, par_p, n, sharp, cull, grad=False)
+
+
+def emulate_fused(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
+                  sharp: float, cull: bool = True):
+    """K4's algorithm in torch: -> the (B,) sums and the (B, 24) gradient
+    of each sum with respect to pred's frame scalars (slots 17-23 zero).
+    ``cull=False`` sweeps each sample's whole window with the same
+    arithmetic (the cull skips only points that add exactly 0)."""
+    return _sweep(par_t, par_p, n, sharp, cull, grad=True)
 
 
 def cull_points(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
                 sharp: float) -> int:
-    """Lattice points K4 evaluates after the exact-zero cull: Σ over the
-    columns of the planes each sweeps (counted by the emulation)."""
+    """Lattice points K4 and K5 evaluate after the exact-zero cull: Σ over
+    the columns of the planes each sweeps (counted by the emulation)."""
     col = _columns(par_t, par_p, n, sharp, True)
     return int((col.j1 - col.j0 + 1).clamp(min=0).sum())
 

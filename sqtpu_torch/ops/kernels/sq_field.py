@@ -4,11 +4,9 @@ shared by the emulations of the implicit-loss kernels (K1/K2,
 ``implicit.py``) and of the explicit-loss kernels (K4/K5,
 ``explicit.py``).
 
-* :func:`_field_terms` is the chain with divisions at every point (the
-  header's ``field_terms``; K5).
 * :func:`_recip`, :func:`_body_origin`, :func:`_field_terms_lin`,
   :func:`_occupancy`, :func:`_sep_grad_step` and :func:`_sep_finish` are
-  the redesigned chain of K1, K2 and K4: per-sample reciprocals, body
+  the chain of K1, K2, K4 and K5: per-sample reciprocals, body
   coordinates linear in z along a lattice column, 11 running sums a column.
 * :func:`cull_sound`, :func:`box_half_width` and :func:`_box_planes` are
   the exact-zero cull: a point outside a frame's box |u|, |v|, |w| ≤ bb
@@ -41,39 +39,6 @@ CULL_MARGIN = 1.05
 
 def _ex(logterm: torch.Tensor) -> torch.Tensor:
     return torch.exp(torch.clamp(logterm, max=CLAMP))
-
-
-def _field_terms(pp, X, Y, z) -> dict:
-    """The forward chain at one z plane with the divisions of the JAX
-    kernel's ``_field_terms`` (sqtpu/ops/kernels/implicit.py:149-178);
-    ``pp`` is the 17 frame scalars, each (B, 1)."""
-    a1, a2, a3, e1, e2, t0, t1, t2 = pp[:8]
-    r = pp[8:17]
-    u = (r[0] * X + r[1] * Y + r[2] * z - t0) / a1
-    v = (r[3] * X + r[4] * Y + r[5] * z - t1) / a2
-    w = (r[6] * X + r[7] * Y + r[8] * z - t2) / a3
-    x2, y2, z2 = u * u, v * v, w * w
-    x2g = x2 + (x2 == 0).to(x2.dtype) * 1e-4
-    y2g = y2 + (y2 == 0).to(y2.dtype) * 1e-4
-    z2g = z2 + (z2 == 0).to(z2.dtype) * 1e-4
-    lx, ly, lz = torch.log(x2g), torch.log(y2g), torch.log(z2g)
-    A = torch.exp(lx / e2)
-    B = torch.exp(ly / e2)
-    C = torch.exp(lz / e1)
-    tiny = torch.finfo(X.dtype).tiny
-    G = A + B + tiny
-    lg = torch.log(G)
-    E = torch.exp(lg * (e2 / e1))
-    H = E + C + tiny
-    lh = torch.log(H)
-    F = torch.exp(lh * e1)
-    return dict(u=u, v=v, w=w, x2g=x2g, y2g=y2g, z2g=z2g, lx=lx, ly=ly,
-                lz=lz, lg=lg, lh=lh, F=F)
-
-
-def _occ(F, sharp: float):
-    """The occupancy sigmoid(sharp·(1 − F)) of K5's emulation."""
-    return torch.sigmoid(sharp * (1.0 - F))
 
 
 class _Recip(NamedTuple):

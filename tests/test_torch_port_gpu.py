@@ -26,8 +26,9 @@ tolerances.
 
 The redesigned K4 (reciprocals, separable sums, the exact-zero cull) is
 held at the c4c shape, N=128 and sharpness 20, against its emulation, the
-plain loss and K5 with the same tolerances; the redesigned K3 (ray-box
-intervals) against the emulation of its algorithm, which equals the full
+plain loss and K5 with the same tolerances, and K5, K4's body without
+the gradient, against K4's sums bit for bit at B=256; the redesigned K3
+(ray-box intervals) against the emulation of its algorithm, which equals the full
 sweep's bit for bit, and against its plain version, with the renderer's
 bound. The card's K3 and its torch emulation round differently (the
 kernel fuses multiply-adds): on 125 recorded truths 9 and 17 of 8.2 M
@@ -424,6 +425,29 @@ def test_redesigned_explicit_kernel_at_the_c4c_shape_on_card(cuda_device,
     rel, atol = (1e-3, 5e-4) if z_window else (1e-5, 1e-6)
     assert got[0] == pytest.approx(plain[0], rel=rel)
     np.testing.assert_allclose(got[1], plain[1], rtol=5e-3, atol=atol)
+
+
+@pytest.mark.gpu
+def test_redesigned_k5_is_k4s_sum_at_the_c4c_shape_on_card(cuda_device):
+    """K5 at the c4c shape (B=256, N=128, sharpness 20, windowed): its
+    per-sample sums are K4's bit for bit and its own run to run, and
+    within the value's 1e-5 of its emulation."""
+    true, pred = (torch.tensor(x, device=cuda_device)
+                  for x in _explicit_batch(84, 256))
+    n, sharp = 128, 20.0
+    par_t, par_p = KE.pack_params(true, pred, n, True,
+                                  KE.default_margin(sharp))
+    KE.reset_launches()
+    k5 = KE.cuda_fwd(par_t, par_p, n, sharp)
+    again = KE.cuda_fwd(par_t, par_p, n, sharp)
+    k4, _ = KE.cuda_fused(par_t, par_p, n, sharp)
+    assert (KE.fused_launches, KE.fwd_launches) == (1, 2)
+    assert torch.equal(k5, again)
+    assert torch.equal(k5, k4)
+    emu = KE.emulate_fwd(par_t, par_p, n, sharp)
+    np.testing.assert_allclose(k5.cpu().numpy(), emu.cpu().numpy(),
+                               rtol=1e-5)
+    assert float(k5.min()) > 0
 
 
 @pytest.mark.gpu

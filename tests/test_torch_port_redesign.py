@@ -1,7 +1,8 @@
-"""The redesigned K4 (explicit loss, fused value and gradient) and K3 (hard
-ray-cast renderer): their algorithms, proven on the CPU through the torch
-emulation of each. The CUDA kernels are held against these emulations on
-the card by tests/test_torch_port_gpu.py and chip_smoke.py.
+"""The redesigned K4 and K5 (explicit loss: fused value and gradient, and
+the value alone) and K3 (hard ray-cast renderer): their algorithms, proven
+on the CPU through the torch emulation of each. The CUDA kernels are held
+against these emulations on the card by tests/test_torch_port_gpu.py and
+chip_smoke.py.
 
 * K4's emulation (per-sample reciprocals, body coordinates linear in z,
   11 running sums a column, the exact-zero cull) against the JAX package's
@@ -11,8 +12,9 @@ the card by tests/test_torch_port_gpu.py and chip_smoke.py.
   windowed).
 * The cull is sound: on params at the clamp's extremes (e = 0.1 and 1,
   a = 0.05, shapes on the faces and corners of the unit cube), every point
-  it skips has both occupancies exactly 0.0 in float32, and the sweep with
-  the cull equals the sweep without it bit for bit.
+  it skips has both occupancies exactly 0.0 in float32, and K4's and K5's
+  sweeps with the cull equal their sweeps without it bit for bit. K5 is
+  K4's body without the gradient: its sums are K4's, bit for bit.
 * K3's interval sweep equals the full sweep bit for bit in float32, over
   a few hundred shapes at 64² (the clamp's extremes, shapes cut by the
   image border, exponents outside the range the kernel's proof covers),
@@ -79,10 +81,17 @@ def _extreme_batch(seed: int):
     return true.astype(np.float32), pred.astype(np.float32)
 
 
-@pytest.mark.parametrize("n,sharp,z_window", [
-    (16, 20.0, True), (32, 20.0, True), (32, 20.0, False), (32, 5.0, True),
-    (16, 60.0, False)])
-def test_k4_cull_skips_only_exact_zeros(n, sharp, z_window):
+CULL_SETTINGS = [(16, 20.0, True), (32, 20.0, True), (32, 20.0, False),
+                 (32, 5.0, True), (16, 60.0, False)]
+
+
+@pytest.mark.parametrize("n,sharp,z_window,kernel", [
+    pytest.param(*c, "K4", id="-".join(map(str, c))) for c in CULL_SETTINGS
+] + [pytest.param(*c, "K5", id="K5-" + "-".join(map(str, c)))
+     for c in CULL_SETTINGS])
+def test_k4_cull_skips_only_exact_zeros(n, sharp, z_window, kernel):
+    """K4's and K5's sweeps with the cull equal their uncut sweeps bit for
+    bit; K5's sums are K4's."""
     true, pred = (torch.tensor(x) for x in _extreme_batch(91 + n))
     par_t, par_p = KE.pack_params(true, pred, n, z_window,
                                   KE.default_margin(sharp))
@@ -104,8 +113,13 @@ def test_k4_cull_skips_only_exact_zeros(n, sharp, z_window):
     assert KE.cull_points(par_t, par_p, n, sharp) == window - culled_points
     if sharp >= 20.0:
         assert culled_points > 0.1 * window
-    with_cull = KE.emulate_fused(par_t, par_p, n, sharp)
-    without = KE.emulate_fused(par_t, par_p, n, sharp, cull=False)
+    fn = KE.emulate_fused if kernel == "K4" else KE.emulate_fwd
+    with_cull = fn(par_t, par_p, n, sharp)
+    without = fn(par_t, par_p, n, sharp, cull=False)
+    if kernel == "K5":
+        assert torch.equal(with_cull, KE.emulate_fused(par_t, par_p, n,
+                                                       sharp)[0])
+        with_cull, without = (with_cull,), (without,)
     for a, b in zip(with_cull, without):
         assert torch.equal(a, b)
 
@@ -200,7 +214,7 @@ def _src(name: str) -> str:
 def test_redesigned_sources():
     explicit, header, render = (_src(f) for f in (
         "explicit.cu", "sq_field.cuh", "hardrender.cu"))
-    k4 = explicit[explicit.index("explicit_fused_kernel("):]
+    k4 = explicit[explicit.index("void explicit_body("):]  # K4's body
     assert "int sqtpu_explicit_fused_blocks(" in explicit
     assert "__launch_bounds__(kThreads, kFusedMinBlocks)" in explicit
     assert "sep_grad_step(" in k4 and "field_terms_lin(" in k4
@@ -211,3 +225,28 @@ def test_redesigned_sources():
     assert "slab_range(" in render and "sqtpu_hardrender(" in render
     for src in (explicit, header, render):
         assert "atomicAdd" not in src and "__expf" not in src
+
+
+def test_k5_is_k4s_body_without_the_gradient():
+    """K4 and K5 instantiate one templated body; K5 no longer divides at
+    every point (no ``field_terms(``), and the cull can be built out."""
+    explicit, header = _src("explicit.cu"), _src("sq_field.cuh")
+    body = explicit[explicit.index("void explicit_body("):
+                    explicit.index("explicit_fused_kernel(")]
+    assert "template <bool kGrad>" in explicit
+    assert "field_terms_lin(" in body and "if constexpr (kGrad)" in body
+    assert "sep_grad_step(" in body and "box_planes(" in body
+    entries = {}
+    for name in ("explicit_fused_kernel(", "explicit_fwd_kernel("):
+        i = explicit.index(name)
+        entries[name] = explicit[i:explicit.index("\n}\n", i)]
+        assert "__global__" in explicit[i - 80:i]
+    assert "explicit_body<true>(" in entries["explicit_fused_kernel("]
+    assert "explicit_body<false>(" in entries["explicit_fwd_kernel("]
+    assert "field_terms(" not in explicit and "field_terms(" not in header
+    for gone in ("Column column(", "blocks_per_sample(", "load_frame("):
+        assert gone not in explicit and gone not in header
+    assert "#define SQTPU_EXPLICIT_CULL 1" in explicit
+    assert "SQTPU_EXPLICIT_CULL && sharp > 0.0f" in body
+    assert "return column_blocks(n);" in explicit.split(
+        "int sqtpu_explicit_blocks(")[1].split("\n")[0]
