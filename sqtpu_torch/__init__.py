@@ -12,8 +12,12 @@ renderer as the CUDA kernel ``csrc/hardrender.cu``; training of ResNetSQ
 (``csrc/implicit.cu``) and supervised with the explicit loss
 (``csrc/explicit.cu``); and training over several ranks with the JAX
 package's ('data', 'grid') axes (:mod:`sqtpu_torch.parallel`), the grid
-axis through K6, the implicit loss on a column slab. See ROADMAP.md for
-the slices still to port.
+axis through K6, the implicit loss on a column slab; the sensor-noise
+protocol (:mod:`sqtpu_torch.data.augment`, the filters of
+:mod:`sqtpu_torch.ops.image`), directory datasets and the bulk entry
+points (:mod:`sqtpu_torch.predict`, :mod:`sqtpu_torch.generate`,
+:mod:`sqtpu_torch.scan`, ``evaluate single``). See ROADMAP.md for the
+slices still to port.
 """
 
 __version__ = "0.1.0"

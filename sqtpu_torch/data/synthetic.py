@@ -1,5 +1,6 @@
 """Synthetic data made on the device: random superquadric parameters and
-their depth maps.
+their depth maps, and the true/pred BMP pairs that evaluation and training
+write (:func:`save_pairs`).
 
 Counterpart of ``sample_params`` and ``make_batch`` in
 ``sqtpu/data/synthetic.py:27-100``: a ~ U(25, 75)/255, e ~ U(0.1, 1.0),
@@ -10,7 +11,11 @@ a1 >= a2. The numbers come from a ``torch.Generator``, so they differ from
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+from sqtpu_torch.data.bmp import write_bmp
 
 from sqtpu_torch.ops import quaternion as quat
 from sqtpu_torch.ops.kernels import render_hard_auto
@@ -64,3 +69,22 @@ def make_batch(generator: torch.Generator, batch: int, image_size: int = 256,
     else:
         raise ValueError(f"unknown renderer {renderer}")
     return imgs[..., None], p
+
+
+# the saved pairs' prediction render: the full sweep, 24 bisections
+# (sqtpu/evaluate.py:261, render_depth_hard's defaults)
+PAIRS_BISECT = 24
+
+
+def save_pairs(out_dir: str, first: int, true_imgs: torch.Tensor,
+               p_pred: torch.Tensor, image_size: int) -> None:
+    """Write ``<k>_true.bmp`` (the model's input) and ``<k>_pred.bmp``
+    (the prediction rendered at the full sweep, K3 on the card in one
+    launch) for k = first, first + 1, ... over the given rows."""
+    pred_imgs = render_hard_auto(p_pred, image_size, n_sweep=image_size,
+                                 n_bisect=PAIRS_BISECT, quantize=True)
+    true_u8 = (true_imgs * 255).to(torch.uint8).cpu().numpy()
+    pred_u8 = (pred_imgs * 255).to(torch.uint8).cpu().numpy()
+    for i in range(true_u8.shape[0]):
+        write_bmp(os.path.join(out_dir, f"{first + i}_true.bmp"), true_u8[i])
+        write_bmp(os.path.join(out_dir, f"{first + i}_pred.bmp"), pred_u8[i])

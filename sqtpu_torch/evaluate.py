@@ -1,16 +1,23 @@
 """Closed-loop evaluation on the card: random params -> hard ray-cast
 render -> ResNetSQ -> IoU tuple and parameter errors, batched.
 
-Counterpart of ``sqtpu/evaluate.py:39-330`` (``load_eval_state``,
-``predict``, ``eval_random``). Outputs are the same: an appended
-``results.txt`` log, ``accs.npz`` with the same keys, and the same printed
-summary. The random stream is torch's, not ``jax.random``'s, so the
-sampled shapes differ from the JAX package's run with the same seed.
+Counterpart of ``sqtpu/evaluate.py`` (``load_eval_state``, ``predict``,
+``eval_single``, ``eval_random``, ``main``). Outputs are the same: an
+appended ``results.txt`` log, ``accs.npz`` with the same keys, the same
+printed summary and, with ``save_pairs``, the same true/pred BMP pairs.
+The random stream is torch's, not ``jax.random``'s, so the sampled shapes
+differ from the JAX package's run with the same seed.
+
+The sensor-noise protocol (``--noise-*``) corrupts the model's input
+only, the truths still score it; its draws come from a second generator,
+so a noisy run sees the same shapes as a clean run with the same seed.
+``--input-filter`` cleans the (corrupted) input before the model.
 
 Usage::
 
     python -m sqtpu_torch.evaluate --ckpt-dir artifacts/resnet_sq_c4_fp16.npz \
         --n 1000 --batch-size 125 --out-dir eval_out [--device cpu]
+    python -m sqtpu_torch.evaluate --ckpt-dir WEIGHTS.npz single image.bmp
 """
 
 from __future__ import annotations
@@ -22,8 +29,11 @@ import time
 import numpy as np
 import torch
 
+from sqtpu_torch.data.augment import depth_noise
+from sqtpu_torch.data.bmp import read_bmp
 from sqtpu_torch.data.labels import denormalize_torch
-from sqtpu_torch.data.synthetic import sample_params
+from sqtpu_torch.data.synthetic import sample_params, save_pairs
+from sqtpu_torch.fit import apply_prefilter
 from sqtpu_torch.models import build_model, params_vector
 from sqtpu_torch.ops import metrics
 from sqtpu_torch.ops.kernels import render_hard_auto
@@ -36,6 +46,9 @@ from sqtpu_torch.utils.config import (
 
 # eval-quality sweep of the ground-truth renderer (sqtpu/evaluate.py:157)
 EVAL_SWEEP, EVAL_BISECT = 64, 16
+# the noise generator's seed under the run's seed (the truths' generator
+# is seeded with the seed itself)
+NOISE_STREAM = 1
 
 
 def load_eval_state(cfg, device: torch.device) -> torch.nn.Module:
@@ -72,6 +85,24 @@ def predict(model: torch.nn.Module, imgs: torch.Tensor) -> torch.Tensor:
     return params_vector(model(imgs))
 
 
+def eval_single(cfg: EvalConfig, image_path: str) -> np.ndarray:
+    """One BMP -> its (12,) normalized params, the reference units
+    printed. ``input_filter`` cleans the image first."""
+    check_slice(cfg)
+    device = resolve_device(cfg.device)
+    img = torch.from_numpy(read_bmp(image_path).astype(np.float32) / 255.0)
+    img = apply_prefilter(img.to(device), cfg.input_filter)
+    model = load_eval_state(cfg, device)
+    pred = predict(model, img[None, ..., None])[0].cpu().numpy()
+    d = denormalize_torch(pred)
+    print("Predicted parameters:")
+    print("Size a:", d[0:3])
+    print("Shape e:", d[3:5])
+    print("Position t:", d[5:8])
+    print("Rotation q:", d[8:12])
+    return pred
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -81,19 +112,30 @@ def _sync(device: torch.device) -> None:
 def eval_random(cfg: EvalConfig) -> dict:
     """The closed loop over ``cfg.n`` random shapes in batches of
     ``cfg.batch_size``: per batch, sample the reference eval distribution,
-    render ground-truth depth (K3 on the card), predict, and score with
-    the IoU tuple at ``acc_render_size``³ and per-parameter MAE."""
+    render ground-truth depth (K3 on the card), corrupt it with the
+    ``noise_*`` options and clean it with ``input_filter`` (the model's
+    input only), predict, and score with the IoU tuple at
+    ``acc_render_size``³ and per-parameter MAE. The first ``save_pairs``
+    samples' input and prediction are written as BMP pairs."""
     check_slice(cfg)
     device = resolve_device(cfg.device)
     model = load_eval_state(cfg, device)
     os.makedirs(cfg.out_dir, exist_ok=True)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
+    noisy = cfg.noise_gaussian or cfg.noise_dropout or cfg.noise_salt
+    noise_gen = torch.Generator(device=device)
+    noise_gen.manual_seed(cfg.seed * 1_000_003 + NOISE_STREAM)
 
     def batch_eval():
         p_true = sample_params(cfg.batch_size, gen, device=device)
         imgs = render_hard_auto(p_true, cfg.image_size, n_sweep=EVAL_SWEEP,
-                                n_bisect=EVAL_BISECT, quantize=True)[..., None]
+                                n_bisect=EVAL_BISECT, quantize=True)
+        if noisy:
+            imgs = depth_noise(noise_gen, imgs, gaussian=cfg.noise_gaussian,
+                               dropout=cfg.noise_dropout,
+                               salt=cfg.noise_salt, quantize=True)
+        imgs = apply_prefilter(imgs, cfg.input_filter)[..., None]
         p_pred = predict(model, imgs)
         triple = metrics.iou_full(p_true, p_pred, cfg.acc_render_size)
         mae = torch.abs(p_pred - p_true)
@@ -110,6 +152,7 @@ def eval_random(cfg: EvalConfig) -> dict:
     all_triples, all_mae, all_mae_g, all_true, all_pred = [], [], [], [], []
     n_batches = (cfg.n + cfg.batch_size - 1) // cfg.batch_size
     latencies = []
+    pairs_saved = 0
     with open(os.path.join(cfg.out_dir, cfg.results_file), "a") as f:
         for b in range(n_batches):
             t0 = time.perf_counter()
@@ -132,6 +175,13 @@ def eval_random(cfg: EvalConfig) -> dict:
                 print("True params:", denormalize_torch(p_true[i]), file=f)
                 print("Pred params:", denormalize_torch(p_pred[i]), file=f)
                 print("- Accuracy:", triple[i] * 100, file=f)
+            # this batch's share of the pairs, so save_pairs > batch_size
+            # goes on saving in the next batches
+            k = min(cfg.save_pairs - pairs_saved, cfg.batch_size)
+            if k > 0:
+                save_pairs(cfg.out_dir, pairs_saved, imgs[:k, ..., 0],
+                           out[1][:k], cfg.image_size)
+                pairs_saved += k
 
     # predict-only latency on the last batch's images, batch 1 and batched
     predict_latency = {}
@@ -241,11 +291,16 @@ def eval_random(cfg: EvalConfig) -> dict:
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    single_path = None
     if "single" in argv:
-        raise NotImplementedError(
-            "single-image evaluation is not ported yet: ROADMAP.md Slice C1 "
-            "(eval_single)")
-    eval_random(parse_cli(EvalConfig, argv))
+        i = argv.index("single")
+        single_path = argv[i + 1]
+        del argv[i: i + 2]
+    cfg = parse_cli(EvalConfig, argv)
+    if single_path:
+        eval_single(cfg, single_path)
+    else:
+        eval_random(cfg)
 
 
 if __name__ == "__main__":

@@ -48,6 +48,36 @@ def to_matrix(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Project onto the unit sphere (safe at 0)."""
+    n = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q / torch.clamp(n, min=eps)
+
+
+def from_matrix(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion, xyzw layout.
+
+    Shepperd's method: of the four reconstructions (from w, x, y or z) the
+    one with the largest pivot is taken per element, so every rotation is
+    well conditioned, trace −1 included (``sqtpu/ops/quaternion.py:85``).
+    """
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    pivots = [1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 + m11 - m00 - m22,
+              1.0 + m22 - m00 - m11]
+    cases = torch.stack([
+        torch.stack([m21 - m12, m02 - m20, m10 - m01, pivots[0]], dim=-1),
+        torch.stack([pivots[1], m01 + m10, m02 + m20, m21 - m12], dim=-1),
+        torch.stack([m01 + m10, pivots[2], m12 + m21, m02 - m20], dim=-1),
+        torch.stack([m02 + m20, m12 + m21, pivots[3], m10 - m01], dim=-1),
+    ], dim=-2)  # (..., 4 cases, 4)
+    best = torch.argmax(torch.stack(pivots, dim=-1), dim=-1)
+    idx = best[..., None, None].expand(best.shape + (1, 4))
+    return normalize(torch.gather(cases, -2, idx)[..., 0, :])
+
+
 def to_magnitude(q: torch.Tensor) -> torch.Tensor:
     """Rotation angle of q: 2·atan2(‖xyz‖, w)."""
     return 2.0 * torch.atan2(torch.linalg.vector_norm(q[..., :3], dim=-1),

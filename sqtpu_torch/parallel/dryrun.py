@@ -428,7 +428,7 @@ def check_convergence(ranks: list, one: dict) -> str:
             f"{one['iou']:.4f}, BN stat drift {drift:.2e}")
 
 
-def dryrun(n_ranks: int = 2, device: str = "cpu", steps: int = 20,
+def dryrun(n_ranks: int = 2, device: str = "cuda", steps: int = 20,
            layouts=tuple(LAYOUTS), timeout_s: float = SPAWN_TIMEOUT_S,
            say=print) -> dict:
     """One train step of each of ``layouts`` on ``n_ranks`` spawned ranks

@@ -24,7 +24,8 @@ Threads: one acceptor (the thread that calls :meth:`SQServer.serve_forever`),
 one reader per connection feeding a bounded queue, and one batcher that
 drains up to ``batch_size`` requests (waiting at most ``batch_window_ms``
 after the first), pads them to ``batch_size`` and runs them as one call on
-the device. Only the batcher touches the model.
+the device, the batch cleaned by ``input_filter`` there first. Only the
+batcher touches the model. ``refine`` (ROADMAP.md Slice D) raises.
 
 Hardening contract (as in the JAX package):
 
@@ -60,6 +61,7 @@ import time
 import numpy as np
 import torch
 
+from sqtpu_torch.fit import apply_prefilter
 from sqtpu_torch.utils.config import (
     ServeConfig, check_slice, parse_cli, resolve_device,
 )
@@ -110,8 +112,9 @@ class SQServer:
         model = load_eval_state(cfg, self.device)
 
         def run(batch_np: np.ndarray) -> np.ndarray:
-            x = torch.from_numpy(batch_np).to(self.device)[..., None]
-            return predict(model, x).cpu().numpy()
+            x = apply_prefilter(torch.from_numpy(batch_np).to(self.device),
+                                cfg.input_filter)
+            return predict(model, x[..., None]).cpu().numpy()
 
         self._run = run
         # pay the first call (cuDNN set-up) before accepting traffic

@@ -9,14 +9,23 @@ through ``implicit_loss_auto``, K4 through ``explicit_loss_auto``), the
 backward and the Adam update; a validation step runs the model in eval mode
 under ``torch.no_grad``, so the explicit loss takes K5 there. The data are
 rendered on the device by the hard ray-caster (K3). Training data come
-from a resident uint8 dataset rendered once (``data="synthetic"``) or are
-rendered afresh for every step (``data="online"``).
+from a resident uint8 dataset rendered once (``data="synthetic"``), are
+rendered afresh for every step (``data="online"``), or are read from a
+directory of BMPs with the labels of ``labels_csv`` (``data=<dir>``,
+:class:`sqtpu_torch.data.datasets.DepthDataset`: no K3 launch, the JAX
+package's shuffle). The ``augment_*`` options corrupt the model's input
+of every train and validation batch with the sensor-noise model
+(:func:`sqtpu_torch.data.augment.depth_noise`, quantized; labels
+untouched), at per-sample magnitudes U(0, max) with
+``augment_randomize``.
 
 The random streams are torch generators on the device, one per purpose:
-the resident dataset, each epoch's training batches, and a validation
-stream re-seeded every epoch so validation batches are identical across
-epochs (the JAX package's fixed validation key). The same seed gives
-other shapes than ``jax.random`` does.
+the resident dataset, each epoch's training batches, a validation stream
+re-seeded every epoch so validation batches are identical across epochs
+(the JAX package's fixed validation key), and the augmentation's noise,
+one stream for each epoch's training batches and one re-seeded every
+epoch for validation, so a resumed run repeats the uninterrupted one. The
+same seed gives other shapes than ``jax.random`` does.
 
 Over several ranks (``python -m torch.distributed.run``, the JAX
 package's ('data', 'grid') mesh, :mod:`sqtpu_torch.parallel`) every rank
@@ -39,12 +48,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sqtpu_torch.data.bmp import write_bmp
-from sqtpu_torch.data.synthetic import make_batch
+from sqtpu_torch.data.augment import depth_noise
+from sqtpu_torch.data.datasets import DepthDataset
+from sqtpu_torch.data.labels import parse_csv_torch
+from sqtpu_torch.data.synthetic import make_batch, save_pairs
 from sqtpu_torch.models import build_model, params_vector
 from sqtpu_torch.models.resnet import use_global_batch_stats
 from sqtpu_torch.ops import losses, metrics
-from sqtpu_torch.ops.kernels import launch_counts, render_hard_auto
+from sqtpu_torch.ops.kernels import launch_counts
 from sqtpu_torch.parallel.mesh import (
     Layout, all_reduce_sum, average_gradients, barrier, broadcast_state,
     data_mean, gather_objects, init_layout, shutdown,
@@ -63,8 +74,10 @@ from sqtpu_torch.utils.checkpoint import (
 from sqtpu_torch.utils.config import TrainConfig, check_slice, resolve_device
 from sqtpu_torch.utils.logging import MetricLogger, NanGuard, Throughput
 
-# Offsets of the random streams under one seed.
+# Offsets of the random streams under one seed (an epoch adds its index);
+# the augmentation's are far from the others' epochs.
 _DATA_STREAM, _VAL_STREAM, _TRAIN_STREAM = 0, 1, 2
+_AUG_TRAIN_STREAM, _AUG_VAL_STREAM = 500_000, 700_000
 
 
 def _generator(device: torch.device, seed: int, stream: int,
@@ -72,6 +85,37 @@ def _generator(device: torch.device, seed: int, stream: int,
     gen = torch.Generator(device=device)
     gen.manual_seed(seed * 1_000_003 + stream + epoch)
     return gen
+
+
+def augment_batch(cfg: TrainConfig, gen: torch.Generator,
+                  imgs: torch.Tensor, rows: Optional[slice] = None):
+    """The ``augment_*`` corruption of a (B, H, W, 1) batch, quantized to
+    the 8-bit lattice; the identity when every magnitude is 0. With
+    ``augment_randomize`` each sample's magnitudes are U(0, max). When
+    ``imgs`` holds only the ``rows`` of a global batch of
+    ``cfg.batch_size``, the noise is drawn for the global batch's shape
+    and these rows kept, so the ranks' rows together are the one-rank
+    batch."""
+    g, d, s = cfg.augment_gaussian, cfg.augment_dropout, cfg.augment_salt
+    if not (g or d or s):
+        return imgs
+    x = imgs[..., 0]
+    padded = rows is not None and x.shape[0] != cfg.batch_size
+    if padded:
+        full = x.new_zeros((cfg.batch_size,) + tuple(x.shape[1:]))
+        full[rows] = x
+        x = full
+    if cfg.augment_randomize:
+        def u():
+            return torch.rand((x.shape[0], 1, 1), generator=gen,
+                              dtype=x.dtype, device=x.device)
+        g = g * u() if g else 0.0
+        d = d * u() if d else 0.0
+        s = s * u() if s else 0.0
+    out = depth_noise(gen, x, gaussian=g, dropout=d, salt=s, quantize=True)
+    if padded:
+        out = out[rows]
+    return out[..., None]
 
 
 def _elong_weights(cfg: TrainConfig, labels,
@@ -398,18 +442,53 @@ def _train(cfg: TrainConfig, layout: Layout, synthetic_size: Optional[int]):
         dataset = SyntheticResident(
             cfg if main else dataclasses.replace(cfg, data_cache=False),
             size, cfg.seed, device)
+        host_dataset = None
+    elif cfg.data == "online":
+        dataset = host_dataset = None
     else:
         dataset = None
+        host_dataset = DepthDataset(cfg.data, parse_csv_torch(cfg.labels_csv),
+                                    cfg.train_split)
+        logger.say(f"{len(host_dataset)} images from {cfg.data}: "
+                   f"{len(host_dataset.train_indices)} train, "
+                   f"{len(host_dataset.val_indices)} validation")
 
-    def batches(gen: torch.Generator, n: int, val: bool):
+    def host_batches(val: bool, epoch: int):
+        """The directory's global batches on the device (validation keeps
+        its tail batch)."""
+        if val:
+            it = host_dataset.batches(host_dataset.val_indices,
+                                      cfg.batch_size, drop_remainder=False)
+        else:
+            it = host_dataset.batches(host_dataset.train_indices,
+                                      cfg.batch_size, shuffle=cfg.shuffle,
+                                      seed=cfg.seed + epoch)
+        for imgs, labels in it:
+            if imgs.shape[0] % layout.n_data:
+                raise ValueError(f"a batch of {imgs.shape[0]} images does "
+                                 f"not split over {layout.n_data} data ranks")
+            yield (torch.from_numpy(imgs).to(device),
+                   torch.from_numpy(labels).to(device))
+
+    def batches(gen: torch.Generator, aug: torch.Generator, n: int,
+                val: bool, epoch: int = 0):
+        """This rank's rows of each global batch, augmented as the global
+        batch is."""
+        if host_dataset is not None:
+            for imgs, labels in host_batches(val, epoch):
+                r = layout.rows(imgs.shape[0])
+                yield augment_batch(cfg, aug, imgs)[r], labels[r]
+            return
         for _ in range(n):
-            if dataset is None:
-                yield make_batch(gen, cfg.batch_size, cfg.image_size,
-                                 cfg.renderer, iso=cfg.iso, rows=rows)
+            if dataset is None:  # renders only this rank's rows
+                imgs, labels = make_batch(gen, cfg.batch_size,
+                                          cfg.image_size, cfg.renderer,
+                                          iso=cfg.iso, rows=rows)
+                yield augment_batch(cfg, aug, imgs, rows), labels
                 continue
             imgs, labels = (dataset.val_batch(gen) if val
                             else dataset.train_batch(gen))
-            yield imgs[rows], labels[rows]
+            yield augment_batch(cfg, aug, imgs)[rows], labels[rows]
 
     # ----- resume
     history = {"loss": [], "val_loss": [], "val_acc": []}
@@ -455,11 +534,13 @@ def _train(cfg: TrainConfig, layout: Layout, synthetic_size: Optional[int]):
         losses_dev = []
         meter.reset()
         train_gen = _generator(device, cfg.seed, _TRAIN_STREAM, epoch)
+        aug_gen = _generator(device, cfg.seed, _AUG_TRAIN_STREAM, epoch)
         for step_idx, (imgs, labels) in enumerate(
-                batches(train_gen, cfg.steps_per_epoch, val=False)):
+                batches(train_gen, aug_gen, cfg.steps_per_epoch, val=False,
+                        epoch=epoch)):
             loss = train_step(imgs, labels)
             losses_dev.append(loss)
-            meter.update(cfg.batch_size)  # the global batch
+            meter.update(int(imgs.shape[0]) * layout.n_data)  # global batch
             if main and step_idx % cfg.log_interval == 0:
                 loss_val = float(loss)
                 nan_guard.check(loss_val)
@@ -482,7 +563,9 @@ def _train(cfg: TrainConfig, layout: Layout, synthetic_size: Optional[int]):
         val_losses, val_accs, val_angs = [], [], []
         val_first = None
         val_gen = _generator(device, cfg.seed, _VAL_STREAM)
-        for imgs, labels in batches(val_gen, cfg.val_steps, val=True):
+        val_aug = _generator(device, cfg.seed, _AUG_VAL_STREAM)
+        for imgs, labels in batches(val_gen, val_aug, cfg.val_steps,
+                                    val=True):
             l, a, ang, pred = eval_step(imgs, labels)
             if val_first is None:
                 val_first = (imgs, pred)
@@ -554,16 +637,9 @@ def _train(cfg: TrainConfig, layout: Layout, synthetic_size: Optional[int]):
 
 @torch.no_grad()
 def _save_compare_images(cfg: TrainConfig, imgs, pred, out_dir: str):
-    """True/pred depth BMP pairs for the first validation samples; the
-    prediction is rendered by the hard ray-caster at the full sweep
-    (image_size slabs, 24 bisections), K3 on the card."""
+    """True/pred depth BMP pairs for the first validation samples, as
+    ``evaluate --save-pairs`` writes them (the prediction rendered at the
+    full sweep, K3 on the card)."""
     os.makedirs(out_dir, exist_ok=True)
     n = min(cfg.compare_images, int(imgs.shape[0]))
-    pred_imgs = render_hard_auto(pred[:n], cfg.image_size,
-                                 n_sweep=cfg.image_size, n_bisect=24,
-                                 quantize=True)
-    true_u8 = (imgs[:n, ..., 0] * 255).to(torch.uint8).cpu().numpy()
-    pred_u8 = (pred_imgs * 255).to(torch.uint8).cpu().numpy()
-    for i in range(n):
-        write_bmp(os.path.join(out_dir, f"{i}_true.bmp"), true_u8[i])
-        write_bmp(os.path.join(out_dir, f"{i}_pred.bmp"), pred_u8[i])
+    save_pairs(out_dir, 0, imgs[:n, ..., 0], pred[:n], cfg.image_size)

@@ -1,12 +1,14 @@
 """Run configurations and the device switch of the port's entry points.
 
-Counterpart of ``sqtpu/utils/config.py:17-176`` and ``parse_cli``, and of
-``ServeConfig`` in ``sqtpu/serve.py``. ``device`` replaces the JAX
-configs' ``platform``: entry points run on ``cuda`` unless the caller asks
-for ``cpu``, and a missing card is an error, never a silent CPU run. The
-JAX configs' options that this port does not run yet are kept so that
-setting one raises (:func:`check_slice`) instead of being ignored; the
-``refine_*`` tuning fields come with the refinement slice.
+Counterpart of ``sqtpu/utils/config.py:17-176`` and ``parse_cli``, of
+``ServeConfig`` in ``sqtpu/serve.py``, ``PredictConfig`` in
+``sqtpu/predict.py`` and ``GenerateConfig`` in ``sqtpu/generate.py``.
+``device`` replaces the JAX configs' ``platform``: entry points run on
+``cuda`` unless the caller asks for ``cpu``, and a missing card is an
+error, never a silent CPU run. The JAX configs' options that this port
+does not run yet are kept so that setting one raises (:func:`check_slice`)
+instead of being ignored; ``EvalConfig``'s and ``ServeConfig``'s
+``refine_*`` tuning fields come with the refinement slice (Slice D).
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ class TrainConfig:
     seed: int = 0
 
     # data
-    data: str = "synthetic"           # synthetic | online
+    data: str = "synthetic"           # synthetic | online | <BMP dir>
     labels_csv: str = ""              # CSV for directory datasets
     image_size: int = 256
     renderer: str = "hard"            # on-device GT renderer: hard | soft
@@ -66,10 +68,12 @@ class TrainConfig:
     data_cache: bool = False          # persist synthetic data under data_cache/
     lr_schedule: str = "plateau"      # plateau | step2019
 
-    # training-time sensor-noise augmentation (Slice C2)
-    augment_gaussian: float = 0.0
-    augment_dropout: float = 0.0
-    augment_salt: float = 0.0
+    # training-time sensor-noise augmentation (data/augment.depth_noise on
+    # the model input of train and validation batches, quantized; labels
+    # untouched); randomize: per-sample magnitudes U(0, max)
+    augment_gaussian: float = 0.0     # object-pixel depth noise std
+    augment_dropout: float = 0.0      # object-pixel missing-return prob
+    augment_salt: float = 0.0         # background flying-pixel prob
     augment_randomize: bool = False
 
     # precision / parallelism
@@ -116,11 +120,12 @@ class EvalConfig:
     save_pairs: int = 0
     out_dir: str = "eval_out"
     device: str = "cuda"              # cuda | cpu
-    noise_gaussian: float = 0.0
-    noise_dropout: float = 0.0
-    noise_salt: float = 0.0
-    input_filter: str = "none"        # only "none" is ported
-    refine: str = "none"              # only "none" is ported
+    # the sensor-noise protocol: corrupt the model's input only
+    noise_gaussian: float = 0.0       # object-pixel depth noise std
+    noise_dropout: float = 0.0        # object-pixel missing-return prob
+    noise_salt: float = 0.0           # background flying-pixel prob
+    input_filter: str = "none"        # none | despeckle | median
+    refine: str = "none"              # only "none" (lm, gd: Slice D)
 
 
 @dataclass
@@ -134,12 +139,56 @@ class ServeConfig:
     batch_window_ms: float = 2.0      # wait after the first queued request
     image_size: int = 256
     denormalize: bool = True
-    refine: str = "none"              # only "none" is ported
-    input_filter: str = "none"        # only "none" is ported
+    refine: str = "none"              # only "none" (lm, gd: Slice D)
+    input_filter: str = "none"        # none | despeckle | median
     device: str = "cuda"              # cuda | cpu
     queue_factor: int = 4             # queue bound = factor * batch_size
     send_timeout_s: float = 10.0      # per-connection SO_SNDTIMEO (0 = none)
     path_root: str = ""               # confine 'path' requests (TCP: required)
+
+
+@dataclass
+class PredictConfig:
+    """The JAX package's ``PredictConfig`` plus ``device``; ``platform`` is
+    accepted and ignored. The ``refine_*`` fields tune the refinement of
+    Slice D: ``refine`` other than ``"none"`` raises."""
+    inputs: str = ""                  # BMP directory or glob pattern
+    ckpt_dir: str = "checkpoints/run0"  # portable .npz or a port run dir
+    model: str = "resnet_sq"
+    out: str = "predictions.csv"
+    batch_size: int = 256
+    image_size: int = 256
+    denormalize: bool = True          # reference units (a, t in 0..255)
+    refine: str = "none"              # only "none" (lm, gd: Slice D)
+    refine_steps: int = 30
+    refine_size: int = 64
+    refine_lr: float = 3e-3
+    refine_robust_c: float = 0.0
+    refine_filter: str = "none"
+    refine_residual: str = "sb"
+    input_filter: str = "none"        # none | despeckle | median
+    platform: str = ""                # accepted, ignored (see device)
+    device: str = "cuda"              # cuda | cpu
+
+
+@dataclass
+class GenerateConfig:
+    """The JAX package's ``GenerateConfig`` plus ``device``, where the
+    parameters are sampled and rendered. ``backend`` picks the renderer, as
+    the JAX package's ``tpu | native`` does: ``device`` the hard
+    ray-caster on ``device`` (K3 on the card, its plain version on the
+    CPU), ``native`` the host C++ scanner; ``platform`` is accepted and
+    ignored."""
+    n: int = 1000
+    out: str = "data/generated"
+    iso: bool = False                 # fixed view (Slice F): raises
+    image_size: int = 256
+    seed: int = 0
+    batch_size: int = 128
+    backend: str = "device"           # device | native (host C++ OpenMP)
+    csv_name: str = "data_labels.csv"
+    platform: str = ""                # accepted, ignored (see device)
+    device: str = "cuda"              # cuda | cpu
 
 
 def check_slice(cfg) -> None:
@@ -155,16 +204,8 @@ def check_slice(cfg) -> None:
     later = []
     if getattr(cfg, "refine", "none") != "none":
         later.append(f"refine={cfg.refine!r}: Slice D (fit.refine_params)")
-    if getattr(cfg, "input_filter", "none") != "none":
-        later.append(f"input_filter={cfg.input_filter!r}: "
-                     "Slice C2 (ops/image.py)")
-    for name in ("noise_gaussian", "noise_dropout", "noise_salt"):
-        if getattr(cfg, name, 0.0):
-            later.append(f"{name}: Slice C2 (data/augment.py)")
     if getattr(cfg, "iso", False):
         later.append("iso: Slice F (the 2019 isometric models)")
-    if getattr(cfg, "save_pairs", 0) > 0:
-        later.append("save_pairs > 0: Slice C1 (eval image pairs)")
     if isinstance(cfg, TrainConfig):
         later += _train_options_later(cfg)
     if later:
@@ -213,10 +254,6 @@ def _train_options_later(cfg: "TrainConfig") -> list:
     if cfg.loss not in PORTED_LOSSES:
         later.append(f"loss={cfg.loss!r}: "
                      + _LOSS_SLICE.get(cfg.loss, "no such loss"))
-    for name in ("augment_gaussian", "augment_dropout", "augment_salt",
-                 "augment_randomize"):
-        if getattr(cfg, name):
-            later.append(f"{name}: Slice C2 (data/augment.py)")
     if cfg.pretrained:
         later.append("pretrained: Slice F (torchvision encoder weights)")
     if cfg.init_base or cfg.freeze_base:
@@ -225,9 +262,6 @@ def _train_options_later(cfg: "TrainConfig") -> list:
         later.append(f"dtype={cfg.dtype!r}: Slice F")
     if cfg.profile_dir:
         later.append("profile_dir: Slice F (utils/profiling.py)")
-    if cfg.data not in ("synthetic", "online"):
-        later.append(f"data={cfg.data!r} (a BMP directory): Slice C2 "
-                     "(data/datasets.py)")
     return later
 
 

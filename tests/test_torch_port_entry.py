@@ -55,9 +55,7 @@ def test_eval_random_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("option", [
-    {"refine": "lm"}, {"noise_gaussian": 0.01}, {"noise_dropout": 0.1},
-    {"noise_salt": 0.01}, {"input_filter": "median"}, {"iso": True},
-    {"save_pairs": 2}, {"model": "refine_sq"}])
+    {"refine": "lm"}, {"iso": True}, {"model": "refine_sq"}])
 def test_eval_options_outside_the_slice_raise(option, tmp_path):
     cfg = EvalConfig(ckpt_dir=WEIGHTS, n=2, batch_size=2, device="cpu",
                      out_dir=str(tmp_path), **option)
@@ -65,9 +63,47 @@ def test_eval_options_outside_the_slice_raise(option, tmp_path):
         eval_random(cfg)
 
 
+@pytest.mark.parametrize("option", [
+    {"noise_gaussian": 0.01}, {"noise_dropout": 0.1}, {"noise_salt": 0.01},
+    {"input_filter": "median"}, {"save_pairs": 2}])
+def test_options_of_slice_c_run(option, tmp_path):
+    """Options the slice gate refused until Slice C (the noise protocol,
+    the input filter, the saved pairs): ``eval_random`` n=2 each."""
+    cfg = EvalConfig(ckpt_dir=WEIGHTS, n=2, batch_size=2, acc_render_size=16,
+                     device="cpu", out_dir=str(tmp_path), **option)
+    res = eval_random(cfg)
+    assert np.isfinite(res["full_iou_mean"])
+    pairs = [f for f in os.listdir(tmp_path) if f.endswith(".bmp")]
+    assert len(pairs) == 2 * cfg.save_pairs
+
+
 def test_serve_options_outside_the_slice_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         SQServer(ServeConfig(ckpt_dir=WEIGHTS, refine="lm", device="cpu"))
+
+
+@pytest.mark.parametrize("entry,slice_", [
+    ("predict_refine", "Slice D"), ("generate_iso", "Slice F"),
+    ("single_classical", "Slice D")])
+def test_bulk_options_outside_the_slice_raise(entry, slice_, tmp_path):
+    """What Slices D and F port still raises from the bulk entry points."""
+    from sqtpu_torch.evaluate import eval_single
+    from sqtpu_torch.generate import generate
+    from sqtpu_torch.predict import predict_files
+    from sqtpu_torch.utils.config import GenerateConfig, PredictConfig
+
+    bmp = tmp_path / "x.bmp"
+    tbmp.write_bmp(bmp, np.zeros((32, 32), np.uint8))
+    with pytest.raises(NotImplementedError, match=slice_):
+        if entry == "predict_refine":
+            predict_files(PredictConfig(ckpt_dir=WEIGHTS, refine="lm",
+                                        device="cpu"), [str(bmp)])
+        elif entry == "generate_iso":
+            generate(GenerateConfig(n=1, out=str(tmp_path), iso=True,
+                                    device="cpu"))
+        else:
+            eval_single(EvalConfig(model="classical", device="cpu"),
+                        str(bmp))
 
 
 def test_cuda_without_a_card_is_an_error():
@@ -178,6 +214,9 @@ def test_port_imports_neither_jax_nor_sqtpu():
         "assert 'sqtpu_torch.train' in sys.modules\n"
         "assert 'sqtpu_torch.training.loop' in sys.modules\n"
         "assert 'sqtpu_torch.ops.kernels.explicit' in sys.modules\n"
+        "for m in ('generate', 'predict', 'scan', 'fit', 'data.augment',"
+        " 'data.datasets', 'data.native'):\n"
+        "    assert 'sqtpu_torch.' + m in sys.modules, m\n"
         "print('clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

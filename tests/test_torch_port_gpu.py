@@ -30,7 +30,10 @@ plain loss and K5 with the same tolerances, and K5, K4's body without
 the gradient, against K4's sums bit for bit at B=256; the redesigned K3
 (ray-box intervals) against the emulation of its algorithm, which equals the full
 sweep's bit for bit, and against its plain version, with the renderer's
-bound. The card's K3 and its torch emulation round differently (the
+bound, at the eval and training sweeps and at the full sweeps of
+``generate`` (256, 20) and ``scan`` (256, 30). K4/K5 are also held at the
+robust recipe's shape, N=64 and sharpness 5. The depth-map filters run on
+the card and give the CPU's bits. The card's K3 and its torch emulation round differently (the
 kernel fuses multiply-adds): on 125 recorded truths 9 and 17 of 8.2 M
 pixels are one gray level apart at (64, 16) and (48, 12), none more.
 """
@@ -91,7 +94,8 @@ def levels_off(a: np.ndarray, b: np.ndarray) -> float:
 # ---- K3, the hard renderer ---------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_sweep,n_bisect", [(64, 16), (48, 12)])
+@pytest.mark.parametrize("n_sweep,n_bisect", [(64, 16), (48, 12), (256, 20),
+                                              (256, 30)])
 def test_kernel_matches_plain_on_card(cuda_device, n_sweep, n_bisect):
     p = torch.from_numpy(_params(np.random.default_rng(23), 16)).to(
         cuda_device)
@@ -451,7 +455,8 @@ def test_redesigned_k5_is_k4s_sum_at_the_c4c_shape_on_card(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_sweep,n_bisect", [(64, 16), (48, 12)])
+@pytest.mark.parametrize("n_sweep,n_bisect", [(64, 16), (48, 12), (256, 20),
+                                              (256, 30)])
 def test_redesigned_renderer_matches_its_emulation_on_card(cuda_device,
                                                            n_sweep, n_bisect):
     p = torch.from_numpy(_params(np.random.default_rng(25), 16)).to(
@@ -470,3 +475,81 @@ def test_redesigned_renderer_matches_its_emulation_on_card(cuda_device,
     want = trender.render_depth_hard_batch(p, 256, n_bisect=n_bisect,
                                            quantize=True, n_sweep=n_sweep)
     assert levels_off(got, want.cpu().numpy()) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("z_window", [True, False])
+def test_explicit_kernels_at_the_c3r_shape_on_card(cuda_device, z_window):
+    """K4/K5 at the robust recipe's shape, B=256, N=64, sharpness 5:
+    against the emulation and the plain loss with the c4c shape's
+    tolerances (phase 21's); K5's per-sample sums are K4's bit for bit.
+    The windowed bound atol 5e-4 is absolute on the batch mean's
+    gradient, so it is held at the recipe's batch: at B=16 the skipped
+    tails of sharpness 5 put single components up to 3.2% (0.0118) off
+    the full sweep, the JAX algorithm's own window. The next test holds
+    the kernel sample by sample at B=16."""
+    true, pred = _explicit_batch(85, 256)
+    kw = {"z_window": z_window, "sharp": 5.0}
+    got = _explicit_value_and_grad(KE.explicit_loss_cuda, true, pred, 64,
+                                   cuda_device, **kw)
+    emu = _explicit_value_and_grad(KE.explicit_loss_emulated, true, pred,
+                                   64, cuda_device, **kw)
+    assert got[0] == pytest.approx(emu[0], rel=1e-5)
+    np.testing.assert_allclose(got[1], emu[1], rtol=5e-3, atol=1e-6)
+    plain = _explicit_value_and_grad(
+        lambda t, p, n, **_: tlosses.explicit_loss(t, p, n, sharp=5.0),
+        true, pred, 64, cuda_device)
+    rel, atol = (1e-3, 5e-4) if z_window else (1e-5, 1e-6)
+    assert got[0] == pytest.approx(plain[0], rel=rel)
+    np.testing.assert_allclose(got[1], plain[1], rtol=5e-3, atol=atol)
+    t, p = (torch.tensor(x, device=cuda_device) for x in (true, pred))
+    par_t, par_p = KE.pack_params(t, p, 64, z_window, KE.default_margin(5.0))
+    k4, _ = KE.cuda_fused(par_t, par_p, 64, 5.0)
+    assert torch.equal(KE.cuda_fwd(par_t, par_p, 64, 5.0), k4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("z_window", [True, False])
+def test_explicit_kernels_per_sample_at_the_c3r_shape_on_card(cuda_device,
+                                                              z_window):
+    """K4/K5 at N=64, sharpness 5 on B=16, where each row of the batch
+    mean's gradient is one sample's over 16: against the emulation only
+    (the JAX package's window, which the plain loss does not bound tighter
+    at this sharpness); K5's per-sample sums are K4's bit for bit."""
+    true, pred = _explicit_batch(85, 16)
+    kw = {"z_window": z_window, "sharp": 5.0}
+    got = _explicit_value_and_grad(KE.explicit_loss_cuda, true, pred, 64,
+                                   cuda_device, **kw)
+    emu = _explicit_value_and_grad(KE.explicit_loss_emulated, true, pred,
+                                   64, cuda_device, **kw)
+    assert got[0] == pytest.approx(emu[0], rel=1e-5)
+    np.testing.assert_allclose(got[1], emu[1], rtol=5e-3, atol=1e-6)
+    t, p = (torch.tensor(x, device=cuda_device) for x in (true, pred))
+    par_t, par_p = KE.pack_params(t, p, 64, z_window, KE.default_margin(5.0))
+    k4, _ = KE.cuda_fused(par_t, par_p, 64, 5.0)
+    assert torch.equal(KE.cuda_fwd(par_t, par_p, 64, 5.0), k4)
+
+
+@pytest.mark.gpu
+def test_filters_and_noise_on_card(cuda_device):
+    """median3, despeckle and apply_prefilter on the card give the CPU's
+    bits; depth_noise on the card keeps its contract (background 0 under
+    Gaussian noise, the 8-bit lattice)."""
+    from sqtpu_torch.data.augment import depth_noise
+    from sqtpu_torch.fit import apply_prefilter
+    from sqtpu_torch.ops import image
+
+    p = torch.from_numpy(_params(np.random.default_rng(26), 8))
+    clean = trender.render_depth_hard_batch(p, 128, n_bisect=16,
+                                            quantize=True, n_sweep=64)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    noisy = depth_noise(gen, clean.to(cuda_device), gaussian=0.02,
+                        dropout=0.2, salt=0.005, quantize=True)
+    x = noisy.cpu().numpy()
+    np.testing.assert_allclose(x * 255, np.round(x * 255), atol=1e-4)
+    for fn in (image.median3, image.despeckle,
+               lambda v: apply_prefilter(v, "median")):
+        assert torch.equal(fn(noisy).cpu(), fn(noisy.cpu()))
+    only_gauss = depth_noise(gen, clean.to(cuda_device), gaussian=0.02)
+    assert (only_gauss.cpu()[clean == 0] == 0).all()

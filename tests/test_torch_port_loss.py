@@ -50,7 +50,46 @@ def test_nearest_resize_is_bit_exact(src, dst):
     np.testing.assert_array_equal(got, want)
 
 
-def test_soft_render_matches_jax():
+def _soft_render_record(request, p, got, want) -> str:
+    """What a miss of ``test_soft_render_matches_jax`` leaves behind: the
+    pixels off, their values, the JAX field along their rays, the test
+    files this worker ran before, and the process state a file could
+    change (torch's default dtype and flags, the main thread's
+    flush-to-zero and denormals-are-zero modes, the JAX config)."""
+    from sqtpu.ops import geometry as jgeometry
+
+    tol = 1e-14 + 1e-10 * np.abs(want)
+    bad = np.argwhere(np.abs(got - want) > tol)
+    ax = jgeometry.make_axis(16, "implicit", dtype=jnp.float64)
+    lines = []
+    for b, i, j in bad[:8]:
+        field = np.asarray(jgeometry.field_grid(
+            ax, ax, ax, jgeometry.clamp_params(jnp.asarray(p[b])),
+            guard=True))
+        lines.append(f"  pixel ({b}, {i}, {j}): got {got[b, i, j]!r} want "
+                     f"{want[b, i, j]!r}; field along the ray (both "
+                     f"orientations) {field[j, 15 - i, :].tolist()} / "
+                     f"{field[i, j, :].tolist()}")
+    ran = sorted({item.nodeid.split("::")[0] for item in request.session.items
+                  if getattr(item, "funcargs", {}) is None})
+    tiny = np.float64(2.2250738585072014e-308)
+    state = {
+        "worker": os.environ.get("PYTEST_XDIST_WORKER", "main"),
+        "files_run_before": ran,
+        "torch_default_dtype": str(torch.get_default_dtype()),
+        "torch_deterministic": torch.are_deterministic_algorithms_enabled(),
+        "torch_threads": torch.get_num_threads(),
+        "ftz": bool(tiny * np.float64(0.5) == 0.0),
+        "daz": bool(np.float64(5e-324) * np.float64(1.0) == 0.0),
+        "jax": {k: getattr(jax.config, k) for k in (
+            "jax_enable_x64", "jax_default_matmul_precision",
+            "jax_platforms", "jax_compilation_cache_dir")},
+    }
+    return (f"{len(bad)} pixels off:\n" + "\n".join(lines)
+            + f"\nprocess state: {state}")
+
+
+def test_soft_render_matches_jax(request):
     p = random_params(30, 3)
     want = np.asarray(jax.vmap(
         lambda pi: jrender.render_depth_soft(pi, 16, 1.5, 260.0))(
@@ -58,7 +97,11 @@ def test_soft_render_matches_jax():
     got = trender.render_depth_soft_batch(torch.from_numpy(p), 16, 1.5,
                                           260.0).numpy()
     assert got.shape == (3, 16, 16)
-    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-14)
+    try:
+        np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-14)
+    except AssertionError as exc:
+        raise AssertionError(
+            f"{exc}\n{_soft_render_record(request, p, got, want)}") from None
     one = trender.render_depth_soft(torch.from_numpy(p[1]), 16).numpy()
     np.testing.assert_allclose(one, want[1], rtol=1e-10, atol=1e-14)
     assert (got > 0.1).any() and (got.min() >= 0.0)
