@@ -12,12 +12,19 @@ The sensor-noise protocol (``--noise-*``) corrupts the model's input
 only, the truths still score it; its draws come from a second generator,
 so a noisy run sees the same shapes as a clean run with the same seed.
 ``--input-filter`` cleans the (corrupted) input before the model.
+``--refine lm|gd|lm+gd`` polishes the predictions against the input
+(:func:`sqtpu_torch.fit.refine_params`); ``--model classical`` runs no
+network: the moments init and ``refine_steps`` LM iterations on
+``refine_size``² points of each image (:func:`classical_recover_fn`).
 
 Usage::
 
     python -m sqtpu_torch.evaluate --ckpt-dir artifacts/resnet_sq_c4_fp16.npz \
         --n 1000 --batch-size 125 --out-dir eval_out [--device cpu]
     python -m sqtpu_torch.evaluate --ckpt-dir WEIGHTS.npz single image.bmp
+    python -m sqtpu_torch.evaluate --model classical --n 1000 \
+        --batch-size 125 [--refine-robust-c 4.685 --refine-filter median]
+    python -m sqtpu_torch.evaluate --ckpt-dir WEIGHTS.npz --refine lm
 """
 
 from __future__ import annotations
@@ -33,8 +40,8 @@ from sqtpu_torch.data.augment import depth_noise
 from sqtpu_torch.data.bmp import read_bmp
 from sqtpu_torch.data.labels import denormalize_torch
 from sqtpu_torch.data.synthetic import sample_params, save_pairs
-from sqtpu_torch.fit import apply_prefilter
-from sqtpu_torch.models import build_model, params_vector
+from sqtpu_torch.fit import apply_prefilter, recover, refine_params
+from sqtpu_torch.models import OUTPUT_DIMS, build_model, params_vector
 from sqtpu_torch.ops import metrics
 from sqtpu_torch.ops.kernels import render_hard_auto
 from sqtpu_torch.utils.checkpoint import (
@@ -85,15 +92,48 @@ def predict(model: torch.nn.Module, imgs: torch.Tensor) -> torch.Tensor:
     return params_vector(model(imgs))
 
 
+def classical_recover_fn(cfg: EvalConfig):
+    """(B, H, W) depth maps -> (B, 12) params by the no-network classical
+    recovery (moments init + LM, :func:`sqtpu_torch.fit.recover`), with
+    every ``refine_*`` knob of ``cfg``: the one place of that wiring."""
+    def recover_fn(imgs: torch.Tensor) -> torch.Tensor:
+        return recover(imgs, n_points=cfg.refine_size,
+                       iters=cfg.refine_steps,
+                       robust_c=cfg.refine_robust_c,
+                       prefilter=cfg.refine_filter,
+                       residual=cfg.refine_residual)[0]
+    return recover_fn
+
+
+def refine_fn(cfg):
+    """(B, H, W) images, (B, 12) predictions -> the predictions refined
+    with ``cfg.refine`` and its ``refine_*`` knobs; the identity when
+    ``cfg.refine`` is ``"none"``."""
+    def refine(imgs: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        if cfg.refine == "none":
+            return p
+        return refine_params(imgs, p, method=cfg.refine,
+                             steps=cfg.refine_steps, n=cfg.refine_size,
+                             lr=cfg.refine_lr,
+                             robust_c=cfg.refine_robust_c,
+                             prefilter=cfg.refine_filter,
+                             residual=cfg.refine_residual)
+    return refine
+
+
 def eval_single(cfg: EvalConfig, image_path: str) -> np.ndarray:
     """One BMP -> its (12,) normalized params, the reference units
-    printed. ``input_filter`` cleans the image first."""
+    printed. ``input_filter`` cleans the image first; ``--model
+    classical`` recovers them with no network."""
     check_slice(cfg)
     device = resolve_device(cfg.device)
     img = torch.from_numpy(read_bmp(image_path).astype(np.float32) / 255.0)
     img = apply_prefilter(img.to(device), cfg.input_filter)
-    model = load_eval_state(cfg, device)
-    pred = predict(model, img[None, ..., None])[0].cpu().numpy()
+    if cfg.model == "classical":
+        pred = classical_recover_fn(cfg)(img[None])[0].cpu().numpy()
+    else:
+        model = load_eval_state(cfg, device)
+        pred = predict(model, img[None, ..., None])[0].cpu().numpy()
     d = denormalize_torch(pred)
     print("Predicted parameters:")
     print("Size a:", d[0:3])
@@ -114,12 +154,30 @@ def eval_random(cfg: EvalConfig) -> dict:
     ``cfg.batch_size``: per batch, sample the reference eval distribution,
     render ground-truth depth (K3 on the card), corrupt it with the
     ``noise_*`` options and clean it with ``input_filter`` (the model's
-    input only), predict, and score with the IoU tuple at
+    input only), predict (or recover with no network, ``--model
+    classical``), refine (``refine``), and score with the IoU tuple at
     ``acc_render_size``³ and per-parameter MAE. The first ``save_pairs``
-    samples' input and prediction are written as BMP pairs."""
+    samples' input and prediction are written as BMP pairs. The
+    predict-only latency times the model alone (for ``classical``, the
+    solve), not the refinement."""
     check_slice(cfg)
     device = resolve_device(cfg.device)
-    model = load_eval_state(cfg, device)
+    classical = cfg.model == "classical"
+    width = OUTPUT_DIMS.get(cfg.model, 12)
+    if cfg.refine != "none" and width != 12:
+        raise ValueError(
+            f"--refine {cfg.refine!r} requires a 12-parameter model; "
+            f"{cfg.model!r} predicts {width}")
+    if classical:
+        model, recover_fn = None, classical_recover_fn(cfg)
+    else:
+        model = load_eval_state(cfg, device)
+    refine = refine_fn(cfg)
+
+    def infer(x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 1) images -> (B, 12): the model, or the solve."""
+        return recover_fn(x[..., 0]) if classical else predict(model, x)
+
     os.makedirs(cfg.out_dir, exist_ok=True)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
@@ -136,7 +194,7 @@ def eval_random(cfg: EvalConfig) -> dict:
                                dropout=cfg.noise_dropout,
                                salt=cfg.noise_salt, quantize=True)
         imgs = apply_prefilter(imgs, cfg.input_filter)[..., None]
-        p_pred = predict(model, imgs)
+        p_pred = refine(imgs[..., 0], infer(imgs))
         triple = metrics.iou_full(p_true, p_pred, cfg.acc_render_size)
         mae = torch.abs(p_pred - p_true)
         # MAE against the gauge-aligned truth, its quaternion flipped to
@@ -186,12 +244,12 @@ def eval_random(cfg: EvalConfig) -> dict:
     # predict-only latency on the last batch's images, batch 1 and batched
     predict_latency = {}
     for name, x in (("batch1", imgs[:1]), (f"batch{cfg.batch_size}", imgs)):
-        predict(model, x)  # warm
+        infer(x)  # warm
         _sync(device)
         t0 = time.perf_counter()
         reps = 10
         for _ in range(reps):
-            predict(model, x)
+            infer(x)
         _sync(device)
         predict_latency[name] = (time.perf_counter() - t0) / (reps
                                                               * x.shape[0])

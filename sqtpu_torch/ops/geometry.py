@@ -1,7 +1,8 @@
 """Superquadric geometry in PyTorch: parameter layout, grids, and the
 inside-outside field.
 
-Counterpart of ``sqtpu/ops/geometry.py`` (:54-190, :356-412). Every
+Counterpart of ``sqtpu/ops/geometry.py`` (:54-190, :268-276, :333-352,
+:356-412). Every
 function works on the canonical 12-vector
 ``[a1,a2,a3, e1,e2, t1,t2,t3, qx,qy,qz,qw]`` (normalized units: a, t in
 [0, 1] ~ /255 world units) and broadcasts over a leading batch dimension
@@ -49,12 +50,25 @@ def join_params(sq: SQParams) -> torch.Tensor:
     return torch.cat([sq.a, sq.e, sq.t, sq.q], dim=-1)
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``, derivative included: the values of ``torch.clamp``,
+    whose derivative is 1 where x equals a bound; ``jnp.clip``'s is 1/2
+    there, and the classical fit starts its shape exponents exactly at the
+    bound 1. The mean of the clamp and of the clamp differentiated only
+    strictly inside gives those values bit for bit and that derivative
+    (``torch.minimum``/``maximum`` would too, but their forward-mode
+    derivative turns float32 into float64)."""
+    c = torch.clamp(x, lo, hi)
+    inner = torch.where((x > lo) & (x < hi), x, c.detach())
+    return 0.5 * (c + inner)
+
+
 def clamp_params(p: torch.Tensor) -> torch.Tensor:
     """a ∈ [0.05, 1], e ∈ [0.1, 1], t ∈ [0, 1]; quaternion untouched."""
     a, e, t, q = split_params(p)
-    return join_params(SQParams(a=a.clamp(A_MIN, A_MAX),
-                                e=e.clamp(E_MIN, E_MAX),
-                                t=t.clamp(T_MIN, T_MAX), q=q))
+    return join_params(SQParams(a=clip(a, A_MIN, A_MAX),
+                                e=clip(e, E_MIN, E_MAX),
+                                t=clip(t, T_MIN, T_MAX), q=q))
 
 
 def make_axis(n: int, kind: str, dtype=torch.float32,
@@ -129,6 +143,51 @@ def field_grid(ax_x: torch.Tensor, ax_y: torch.Tensor, ax_z: torch.Tensor,
             + s(rot[..., i, 2]) * Z
         coord.append(((c - s(tr[..., i])) / s(a[..., i])) ** 2)
     return _power_chain(*coord, s(e[..., 0]), s(e[..., 1]), guard=guard)
+
+
+def field_points(points: torch.Tensor, p: torch.Tensor, *,
+                 guard: bool = True) -> torch.Tensor:
+    """F^(e1) at arbitrary world points: ``points`` (..., N, 3) and ``p``
+    (..., 12) with the same leading dims (none for one superquadric) ->
+    (..., N); F < 1 inside, > 1 outside."""
+    a, e, tr, rot = _rotated_frame(p)
+    rp = torch.einsum("...ij,...nj->...ni", rot, points)
+
+    def s(v):  # a per-sample scalar, broadcast over the points
+        return v[..., None]
+
+    sq = [((rp[..., i] - s(tr[..., i])) / s(a[..., i])) ** 2
+          for i in range(3)]
+    return _power_chain(*sq, s(e[..., 0]), s(e[..., 1]), guard=guard)
+
+
+def signed_distance(points: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Signed radial distance |r0|·(1 − F^(−e1/2)) (the scanner's
+    ``sq::sdistance``): positive outside, negative inside, zero on the
+    surface. Shapes as :func:`field_points`."""
+    f = field_points(points, p, guard=True)
+    r0 = torch.linalg.vector_norm(points - p[..., None, POS_SLICE], dim=-1)
+    return r0 * (1.0 - torch.pow(f, -0.5))
+
+
+def radial_distance(points: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Radial point-to-surface distance |r0|·|1 − F^(−e1/2)| (the
+    scanner's ``sq::distance``). Shapes as :func:`field_points`."""
+    f = field_points(points, p, guard=True)
+    r0 = torch.linalg.vector_norm(points - p[..., None, POS_SLICE], dim=-1)
+    return r0 * torch.abs(1.0 - torch.pow(f, -0.5))
+
+
+def transform_params(p: torch.Tensor, q2: torch.Tensor,
+                     t2: torch.Tensor) -> torch.Tensor:
+    """A rigid pose (q2, t2) applied to a superquadric (the scanner's
+    ``sq::transform_g``): q' = q2·q, t' = R(q2)·t + t2; sizes and shape
+    unchanged. Broadcasts over leading dims."""
+    a, e, t, q = split_params(p)
+    t_new, q_new = quat.rotate(t, q2) + t2, quat.multiply(q2, q)
+    lead = t_new.shape[:-1]
+    return join_params(SQParams(a=a.expand(lead + (3,)),
+                                e=e.expand(lead + (2,)), t=t_new, q=q_new))
 
 
 def betaln(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -2,11 +2,11 @@
 
 Counterpart of ``sqtpu/ops/losses.py``: the explicit occupancy-grid MSE
 (:49-79), the implicit (self-supervised) depth loss (:38-43, :87-106), the
-quaternion and gauge-aware supervised losses (:155-318) and the plain
-parameter MSE (:325-340). The least-squares loss and the Keras losses
-belong to later slices (ROADMAP.md Slices D and F). Gradients are torch
-autograd's; these are the plain versions the kernels K1/K2 and K4/K5 are
-held against.
+least-squares Solina-Bajcsy energy (:114-148), the quaternion and
+gauge-aware supervised losses (:155-318) and the plain parameter MSE
+(:325-340). The Keras losses belong to a later slice (ROADMAP.md Slice
+F). Gradients are torch autograd's; these are the plain versions the
+kernels K1/K2 and K4/K5 are held against.
 """
 
 from __future__ import annotations
@@ -63,6 +63,37 @@ def implicit_loss(true_img: torch.Tensor, pred_p: torch.Tensor,
     img_small = nearest_resize(img, (render_size, render_size))
     depth = render_depth_soft_batch(pred_p, render_size, tau, sharpness)
     per_sample = torch.mean(torch.abs(img_small - depth), dim=(1, 2))
+    return torch.mean(per_sample) if reduce else per_sample
+
+
+def lattice_points(small: torch.Tensor) -> torch.Tensor:
+    """(..., N, N) depth maps -> (..., N², 3) points: pixel (row, col)
+    lifts to (col/N, 1 − row/N, depth), the reference's (y, 1−x, z)
+    (``classes.py:358-369``)."""
+    n = small.shape[-1]
+    ax = torch.arange(n, dtype=small.dtype, device=small.device) / n
+    cols = ax[None, :].expand(n, n)
+    rows = (1.0 - ax)[:, None].expand(n, n)
+    return torch.stack([cols.expand_as(small), rows.expand_as(small),
+                        small], dim=-1).reshape(small.shape[:-2] + (-1, 3))
+
+
+def least_squares_loss(true_img: torch.Tensor, pred_p: torch.Tensor,
+                       render_size: int = 64,
+                       reduce: bool = True) -> torch.Tensor:
+    """Σ over the depth image's points of (√(a1a2a3)·(F^e1 − 1))²: every
+    pixel of the image resized to ``render_size`` is a point, masked to
+    the nonzero ones (the reference's ragged point list, static
+    shapes)."""
+    img = _as_bhw(true_img).to(pred_p.dtype)
+    small = nearest_resize(img, (render_size, render_size))
+    pts = lattice_points(small)                               # (B, N², 3)
+    mask = (small > 0).reshape(small.shape[0], -1)
+    pp = geometry.clamp_params(pred_p)
+    f = geometry.field_points(pts, pp, guard=True)
+    a = pp[..., geometry.SIZE_SLICE]
+    scale = torch.sqrt(a[..., 0] * a[..., 1] * a[..., 2])[..., None]
+    per_sample = torch.sum((scale * (f - 1.0)) ** 2 * mask, dim=-1)
     return torch.mean(per_sample) if reduce else per_sample
 
 

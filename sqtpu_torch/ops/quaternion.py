@@ -3,7 +3,7 @@
 Counterpart of ``sqtpu/ops/quaternion.py``: the same conventions (Hamilton
 product, w last, ``to_matrix(q) @ p`` rotates ``p`` by ``q``), dtype
 preserving and broadcasting over leading batch dimensions. Only the
-functions the evaluation and serving path needs are here.
+functions the port's paths need are here.
 """
 
 from __future__ import annotations
@@ -32,7 +32,9 @@ def conjugate(q: torch.Tensor) -> torch.Tensor:
 def to_matrix(q: torch.Tensor) -> torch.Tensor:
     """Quaternion -> 3x3 rotation matrix, shape (..., 3, 3)."""
     x, y, z, w = q.unbind(-1)
-    tx, ty, tz = 2.0 * x, 2.0 * y, 2.0 * z
+    # x + x, not 2.0 * x: the same bits, and forward-mode AD of a 0-dim
+    # tensor times a Python float gives a float64 tangent (torch 2.13)
+    tx, ty, tz = x + x, y + y, z + z
     twx, twy, twz = tx * w, ty * w, tz * w
     txx, txy, txz = tx * x, ty * x, tz * x
     tyy, tyz = ty * y, tz * y
@@ -52,6 +54,13 @@ def normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Project onto the unit sphere (safe at 0)."""
     n = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
     return q / torch.clamp(n, min=eps)
+
+
+def rotate(point: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Rotate 3-vector(s) ``point`` (..., 3) by unit quaternion(s) q:
+    q * p * q⁻¹, broadcasting over leading dims."""
+    p4 = torch.cat([point, torch.zeros_like(point[..., :1])], dim=-1)
+    return multiply(multiply(q, p4), conjugate(q))[..., :3]
 
 
 def from_matrix(m: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,11 @@ Counterpart of ``sqtpu/ops/render.py``:
   implicit loss: occupancy sigmoid(sharpness·(1 − F)) on an N³ grid, a
   far→near cumulative sum along z, depth = 1 − Σ exp(−τ·cum) / N;
 * the hard (exact) ray-cast render (:95-186), the plain PyTorch version
-  of the kernel ``sqtpu_torch/csrc/hardrender.cu``.
+  of the kernel ``sqtpu_torch/csrc/hardrender.cu``;
+* the general ray-superquadric intersection and the posed-camera render
+  (:193-306): :func:`intersect_ray`, :func:`camera_frame_params` and
+  :func:`render_depth_view`, which renders the superquadric expressed in
+  the camera's frame with the −z ray-caster (K3 on the card).
 
 Camera model: orthographic view along −z; image column = world x, image
 row counted from the bottom = world y; pixel value = max surface z along
@@ -126,3 +130,89 @@ def render_depth_hard(p: torch.Tensor, image_size: int = 256,
     """(12,) params -> (S, S) exact depth map."""
     return render_depth_hard_batch(p[None], image_size, n_bisect=n_bisect,
                                    quantize=quantize, n_sweep=n_sweep)[0]
+
+
+# ---------------------------------------------------------------------------
+# General ray-superquadric intersection and posed-camera rendering
+# ---------------------------------------------------------------------------
+
+def intersect_ray(origin: torch.Tensor, direction: torch.Tensor,
+                  p: torch.Tensor, n_sweep: int = 128,
+                  n_bisect: int = 24):
+    """First intersection of rays with the surface F = 1 of one
+    superquadric ``p`` (12,): ``origin`` and ``direction`` (R, 3) (or
+    (3,), broadcast). Clips each ray to the bounding sphere (radius |a|
+    around t), sweeps ``n_sweep`` samples for the first inside point (the
+    inside set along a ray is an interval) and bisects the bracket.
+    Returns ``(t_hit, hit)``, (R,) each: the entry point's ray parameter
+    in units of |direction| (0 where there is no hit) and the hit mask;
+    only t ≥ 0 counts."""
+    origin, direction = torch.broadcast_tensors(origin, direction)
+    a, e, t, q = geometry.split_params(p)
+    tiny = torch.as_tensor(1e-20, dtype=p.dtype, device=p.device)
+    dn = torch.linalg.vector_norm(direction, dim=-1)
+    d = direction / torch.maximum(dn, tiny)[..., None]
+
+    oc = origin - t
+    b = torch.sum(oc * d, dim=-1)
+    c = torch.sum(oc * oc, dim=-1) - torch.dot(a, a)
+    disc = b * b - c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t0 = torch.clamp(-b - sq, min=0.0)
+    t1 = -b + sq
+    miss_sphere = (disc <= 0.0) | (t1 <= 0.0)
+    step = (t1 - t0) / n_sweep
+
+    def inside(tt):
+        return geometry.field_points(origin + tt[..., None] * d, p,
+                                     guard=True) <= 1.0
+
+    t_in = torch.zeros_like(t0)
+    found = torch.zeros_like(t0, dtype=torch.bool)
+    for i in range(n_sweep):
+        tt = t0 + float(i) * step
+        ins = inside(tt)
+        t_in = torch.where(ins & ~found, tt, t_in)
+        found = found | ins
+    hit = found & ~miss_sphere
+
+    lo, hi = torch.maximum(t_in - step, t0), t_in  # outside, inside end
+    for _ in range(n_bisect):
+        mid = 0.5 * (lo + hi)
+        ins = inside(mid)
+        lo, hi = torch.where(ins, lo, mid), torch.where(ins, mid, hi)
+    t_hit = torch.where(hit, hi / torch.maximum(dn, tiny),
+                        torch.zeros_like(hi))
+    return t_hit, hit
+
+
+SCENE_CENTER = 0.5  # the reference scene lives in the unit box
+
+
+def camera_frame_params(p: torch.Tensor, cam_q: torch.Tensor) -> torch.Tensor:
+    """Parameters (..., 12) expressed in the frame of a camera rotated by
+    ``cam_q`` (..., 4; world-from-camera, xyzw) about the scene center
+    (0.5, 0.5, 0.5): a rigid :func:`geometry.transform_params`."""
+    c0 = torch.full((3,), SCENE_CENTER, dtype=p.dtype, device=p.device)
+    q_inv = quat.conjugate(cam_q)
+    t2 = c0 - quat.rotate(c0, q_inv)
+    return geometry.transform_params(p, q_inv, t2)
+
+
+def render_depth_view(p: torch.Tensor, cam_qs: torch.Tensor,
+                      image_size: int = 256, n_bisect: int = 24,
+                      quantize: bool = False,
+                      n_sweep: int | None = None) -> torch.Tensor:
+    """Orthographic depth maps of one superquadric ``p`` (12,) (or one per
+    view, (V, 12)) from posed cameras ``cam_qs`` (V, 4), world-from-camera
+    rotations about the scene center -> (V, S, S). The identity camera
+    gives :func:`render_depth_hard` to the bit. The hard ray-caster runs
+    on the camera-frame parameters: K3 on the card, its plain version on
+    the CPU; ``n_sweep`` None sweeps ``image_size`` slabs."""
+    from sqtpu_torch.ops.kernels import render_hard_auto
+
+    frames = camera_frame_params(p, cam_qs)
+    return render_hard_auto(frames, image_size,
+                            n_sweep=image_size if n_sweep is None
+                            else n_sweep,
+                            n_bisect=n_bisect, quantize=quantize)

@@ -18,8 +18,10 @@ gradient norm within 1e-3 relative):
 * ``kernel-dp``: the batch over the data axis, K1/K2 on each rank's rows;
 * ``explicit-sym-dp``: the supervised recipe's objective, K4 on each
   rank's rows;
-* ``refine-dp`` raises ``NotImplementedError``: the refinement model is
-  ROADMAP.md Slice D.
+* ``refine-dp``: the same objective on the ``refine_sq`` corrector (one
+  pass, the in-loop render at 8 slabs: K3 on each rank's rows; its two
+  encoders' BatchNorm over the data group), the base from the c4
+  artifact.
 
 With an even number of ranks the grid layouts put two ranks on the grid
 axis; the JAX package does that only from four devices, so at two ranks
@@ -50,7 +52,7 @@ import numpy as np
 import torch
 
 from sqtpu_torch.data.synthetic import make_batch
-from sqtpu_torch.models import build_model
+from sqtpu_torch.models import build_model, warm_start_base
 from sqtpu_torch.models.resnet import use_global_batch_stats
 from sqtpu_torch.ops.kernels import launch_counts, reset_launches
 from sqtpu_torch.parallel.mesh import (
@@ -162,14 +164,22 @@ def deterministic(on: bool = True) -> None:
     torch.use_deterministic_algorithms(on, warn_only=True)
 
 
-def build_resnet(weights: str | None, device: torch.device):
-    """ResNetSQ from ``weights`` (a portable npz), or from seed 0."""
+def build_resnet(weights: str | None, device: torch.device,
+                 model: str = "resnet_sq"):
+    """ResNetSQ from ``weights`` (a portable npz), or from seed 0; with
+    ``model="refine_sq"`` the corrector of the JAX dryrun (one pass, 8
+    slabs) from seed 0, its base from ``weights``."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
-        model = build_model("resnet_sq")
+        if model == "refine_sq":
+            net = build_model(model, n_refine=1, n_sweep=8)
+            if weights:
+                warm_start_base(net, weights)
+            return net.to(device)
+        net = build_model(model)
     if weights:
-        load_weights_npz(weights, model)
-    return model.to(device)
+        load_weights_npz(weights, net)
+    return net.to(device)
 
 
 def state_digest(model: torch.nn.Module) -> str:
@@ -214,7 +224,7 @@ def step_job(layout: Layout, spec: dict) -> dict:
     memory; with ``spec["grads"]`` every parameter's gradient, with
     ``spec["dp_seed"]`` this rank's rows."""
     cfg, dev = spec["cfg"], layout.device
-    model = build_resnet(spec.get("weights"), dev)
+    model = build_resnet(spec.get("weights"), dev, cfg.model)
     use_global_batch_stats(model, layout.data_group)
     state = create_train_state(model, cfg)
     step = make_train_step(state, cfg, layout)
@@ -300,18 +310,18 @@ def converge_job(layout: Layout, spec: dict) -> dict:
 # The gates
 # ---------------------------------------------------------------------------
 
-# name -> (grid layout, use_pallas, loss)
+# name -> (grid layout, use_pallas, loss, model)
 LAYOUTS = {
-    "grid-sharded": (True, False, "implicit"),
-    "grid-sharded-kernel": (True, True, "implicit"),
-    "kernel-dp": (False, True, "implicit"),
-    "explicit-sym-dp": (False, True, "explicit_sym"),
+    "grid-sharded": (True, False, "implicit", "resnet_sq"),
+    "grid-sharded-kernel": (True, True, "implicit", "resnet_sq"),
+    "kernel-dp": (False, True, "implicit", "resnet_sq"),
+    "explicit-sym-dp": (False, True, "explicit_sym", "resnet_sq"),
+    "refine-dp": (False, True, "explicit_sym", "refine_sq"),
 }
 _ART = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "artifacts")
 WEIGHTS = {"implicit": os.path.join(_ART, "resnet_sq_ssl_fp16.npz"),
            "explicit_sym": os.path.join(_ART, "resnet_sq_c4_fp16.npz")}
-LATER = {"refine-dp": "ROADMAP.md Slice D (models/refiner.py)"}
 
 
 def check_step_parity(name: str, ranks: list, one: dict,
@@ -348,15 +358,12 @@ def check_step_parity(name: str, ranks: list, one: dict,
 
 
 def _layout_spec(name: str, n_ranks: int, device: torch.device):
-    if name in LATER:
-        raise NotImplementedError(f"layout {name!r} is not ported yet: "
-                                  f"{LATER[name]}")
-    grid, use_pallas, loss = LAYOUTS[name]
+    grid, use_pallas, loss, model = LAYOUTS[name]
     n_grid = 2 if grid and n_ranks % 2 == 0 else 1
     n_data = n_ranks // n_grid
     cfg = TrainConfig(image_size=64, render_size=16, batch_size=2 * n_data,
                       use_pallas=use_pallas, n_grid=n_grid, loss=loss,
-                      device=device.type)
+                      model=model, device=device.type)
     if use_pallas:
         # each rank renders its own rows (make_batch_dp), as the JAX dryrun
         return n_grid, {"cfg": cfg, "dp_seed": 1,

@@ -5,7 +5,8 @@ Counterpart of ``sqtpu/predict.py``. Every depth map is read, cleaned with
 on the device (the tail batch padded with zero images, so every call has
 one shape), and the predictions are written as the 21-column CSV of the
 dataset generator (``fn, a1..a3, e1, e2, t1..t3, m11..m33, q1..q4``).
-The test-time refinement (``refine``) is ROADMAP.md Slice D and raises.
+``--refine lm|gd|lm+gd`` polishes each batch's predictions against its
+(cleaned) images (:func:`sqtpu_torch.fit.refine_params`).
 
 Usage::
 
@@ -28,7 +29,7 @@ import torch
 
 from sqtpu_torch.data.bmp import read_bmp
 from sqtpu_torch.data.labels import csv_row
-from sqtpu_torch.evaluate import load_eval_state, predict
+from sqtpu_torch.evaluate import load_eval_state, predict, refine_fn
 from sqtpu_torch.fit import apply_prefilter
 from sqtpu_torch.ops.quaternion import to_matrix
 from sqtpu_torch.utils.config import (
@@ -49,6 +50,7 @@ def predict_files(cfg: PredictConfig, files: list[str]) -> np.ndarray:
     check_slice(cfg)
     device = resolve_device(cfg.device)
     model = load_eval_state(cfg, device)
+    refine = refine_fn(cfg)
     out = np.empty((len(files), 12), np.float32)
     bs = cfg.batch_size
     t0 = time.perf_counter()
@@ -62,7 +64,7 @@ def predict_files(cfg: PredictConfig, files: list[str]) -> np.ndarray:
                                                   np.float32)])
         x = apply_prefilter(torch.from_numpy(imgs).to(device),
                             cfg.input_filter)
-        p = predict(model, x[..., None])
+        p = refine(x, predict(model, x[..., None]))
         out[lo:lo + len(chunk)] = p[:len(chunk)].cpu().numpy()
         done = min(lo + bs, len(files))
         rate = done / (time.perf_counter() - t0)

@@ -24,8 +24,10 @@ Threads: one acceptor (the thread that calls :meth:`SQServer.serve_forever`),
 one reader per connection feeding a bounded queue, and one batcher that
 drains up to ``batch_size`` requests (waiting at most ``batch_window_ms``
 after the first), pads them to ``batch_size`` and runs them as one call on
-the device, the batch cleaned by ``input_filter`` there first. Only the
-batcher touches the model. ``refine`` (ROADMAP.md Slice D) raises.
+the device, the batch cleaned by ``input_filter`` there first and the
+predictions refined with ``refine`` (``lm``, ``gd``, ``lm+gd``;
+:func:`sqtpu_torch.fit.refine_params`) after. Only the batcher touches
+the model.
 
 Hardening contract (as in the JAX package):
 
@@ -106,15 +108,16 @@ class SQServer:
     # ---- model -----------------------------------------------------
 
     def _build(self):
-        from sqtpu_torch.evaluate import load_eval_state, predict
+        from sqtpu_torch.evaluate import load_eval_state, predict, refine_fn
 
         cfg = self.cfg
         model = load_eval_state(cfg, self.device)
+        refine = refine_fn(cfg)
 
         def run(batch_np: np.ndarray) -> np.ndarray:
             x = apply_prefilter(torch.from_numpy(batch_np).to(self.device),
                                 cfg.input_filter)
-            return predict(model, x[..., None]).cpu().numpy()
+            return refine(x, predict(model, x[..., None])).cpu().numpy()
 
         self._run = run
         # pay the first call (cuDNN set-up) before accepting traffic

@@ -1,9 +1,12 @@
-"""The training loop of the port: ResNetSQ trained self-supervised (the
-implicit loss) or supervised (the explicit loss and the parameter-space
-anchors), on data rendered on the device.
+"""The training loop of the port: ResNetSQ or the ``refine_sq`` corrector
+trained self-supervised (the implicit loss) or supervised (the explicit
+loss and the parameter-space anchors), on data rendered on the device.
 
 Counterpart of ``sqtpu/training/loop.py`` (:41-243, :246-749) without the
-``leastsquares`` and ``keras_chamfer`` losses (ROADMAP.md Slices D and F).
+``keras_chamfer`` loss (ROADMAP.md Slice F). ``init_base`` loads a
+``resnet_sq`` weights file into the corrector's base, and ``freeze_base``
+zeroes the base's gradients (its BatchNorm statistics still move: the
+base runs in train mode).
 One train step runs the model in train mode, the loss (on the card K1/K2
 through ``implicit_loss_auto``, K4 through ``explicit_loss_auto``), the
 backward and the Adam update; a validation step runs the model in eval mode
@@ -52,7 +55,7 @@ from sqtpu_torch.data.augment import depth_noise
 from sqtpu_torch.data.datasets import DepthDataset
 from sqtpu_torch.data.labels import parse_csv_torch
 from sqtpu_torch.data.synthetic import make_batch, save_pairs
-from sqtpu_torch.models import build_model, params_vector
+from sqtpu_torch.models import build_model, params_vector, warm_start_base
 from sqtpu_torch.models.resnet import use_global_batch_stats
 from sqtpu_torch.ops import losses, metrics
 from sqtpu_torch.ops.kernels import launch_counts
@@ -167,9 +170,8 @@ def _compute_loss(cfg: TrainConfig, pred, imgs, labels,
     then this rank's rows): the implicit loss through the grid-sharded
     loss when the grid axis is larger than 1, the kernel losses through
     their data-parallel versions (:78-107, :58-75), every other batch
-    mean averaged over the data group. ``leastsquares`` and
-    ``keras_chamfer`` raise in :func:`check_slice` before training
-    starts."""
+    mean averaged over the data group. ``keras_chamfer`` raises in
+    :func:`check_slice` before training starts."""
     layout = layout or Layout()
     if cfg.loss == "implicit":
         if layout.n_grid > 1:
@@ -185,6 +187,9 @@ def _compute_loss(cfg: TrainConfig, pred, imgs, labels,
             cfg.sigmoid_sharpness), layout)
     if cfg.loss == "explicit":
         return _explicit_geo(cfg, pred, labels, layout)
+    if cfg.loss == "leastsquares":
+        return data_mean(losses.least_squares_loss(imgs[..., 0], pred,
+                                                   cfg.render_size), layout)
     if cfg.loss == "param_mse":
         return data_mean(losses.param_mse(pred, labels[..., :pred.shape[-1]]),
                          layout)
@@ -243,6 +248,17 @@ def _compute_loss(cfg: TrainConfig, pred, imgs, labels,
                               "(see ROADMAP.md)")
 
 
+def zero_frozen_grads(model: torch.nn.Module, cfg: TrainConfig) -> None:
+    """With ``cfg.freeze_base``, zero the gradients of ``model.base`` (the
+    JAX package's ``freeze_base``): called after the gradients' all-reduce
+    and before the update, Adam then leaves the base as it is. Its
+    BatchNorm statistics still move: the base stays in train mode."""
+    if cfg.freeze_base and hasattr(model, "base"):
+        for p in model.base.parameters():
+            if p.grad is not None:
+                p.grad.zero_()
+
+
 def make_train_step(state: TrainState, cfg: TrainConfig,
                     layout: Optional[Layout] = None):
     """The train step: model in train mode -> params vector -> loss ->
@@ -252,7 +268,9 @@ def make_train_step(state: TrainState, cfg: TrainConfig,
     Over several ranks (``layout``) the step takes this rank's rows and
     returns the global batch's loss; after the backward the gradients are
     averaged over the world, and after the update rank 0's BatchNorm
-    statistics are broadcast, so every rank holds the same model.
+    statistics are broadcast, so every rank holds the same model. With
+    ``cfg.freeze_base`` the base's gradients are zeroed before the update
+    (:func:`zero_frozen_grads`).
 
     ``nan_policy="skip"`` discards the whole update when the loss is not
     finite: the BatchNorm running statistics the forward already moved are
@@ -279,6 +297,7 @@ def make_train_step(state: TrainState, cfg: TrainConfig,
             return loss.detach()
         loss.backward()
         average_gradients(model.parameters(), layout)
+        zero_frozen_grads(model, cfg)
         state.apply_gradients()
         broadcast_state(model.buffers(), layout)
         return loss.detach()
@@ -418,6 +437,11 @@ def _train(cfg: TrainConfig, layout: Layout, synthetic_size: Optional[int]):
         # full-model warm start from a portable npz; fresh optimizer
         load_weights_npz(cfg.init_weights, model)
         logger.say(f"warm-started all weights from {cfg.init_weights}")
+    if cfg.init_base:
+        # refine_sq: the base from a resnet_sq file; the corrector keeps
+        # its identity init, so step 0 scores like the base model
+        warm_start_base(model, cfg.init_base)
+        logger.say(f"warm-started base from {cfg.init_base}")
     model.to(device)
     broadcast_state(model.state_dict().values(), layout)
     use_global_batch_stats(model, layout.data_group)

@@ -7,8 +7,8 @@ Counterpart of ``sqtpu/utils/config.py:17-176`` and ``parse_cli``, of
 ``cuda`` unless the caller asks for ``cpu``, and a missing card is an
 error, never a silent CPU run. The JAX configs' options that this port
 does not run yet are kept so that setting one raises (:func:`check_slice`)
-instead of being ignored; ``EvalConfig``'s and ``ServeConfig``'s
-``refine_*`` tuning fields come with the refinement slice (Slice D).
+instead of being ignored. ``FitConfig`` is ``sqtpu/utils/config.py:
+179-192``'s, for ``python -m sqtpu_torch.fit``.
 """
 
 from __future__ import annotations
@@ -125,7 +125,16 @@ class EvalConfig:
     noise_dropout: float = 0.0        # object-pixel missing-return prob
     noise_salt: float = 0.0           # background flying-pixel prob
     input_filter: str = "none"        # none | despeckle | median
-    refine: str = "none"              # only "none" (lm, gd: Slice D)
+    # test-time refinement of the predictions (fit.refine_params), and
+    # the LM of --model classical (refine_steps iterations on
+    # refine_size² points)
+    refine: str = "none"              # none | lm | gd | lm+gd
+    refine_steps: int = 30
+    refine_size: int = 64             # LM point grid / GD render size
+    refine_lr: float = 3e-3           # GD (Adam) step size
+    refine_robust_c: float = 0.0      # IRLS Tukey constant (0 = off)
+    refine_filter: str = "none"       # none | despeckle | median
+    refine_residual: str = "sb"       # LM residual: sb | radial
 
 
 @dataclass
@@ -139,7 +148,13 @@ class ServeConfig:
     batch_window_ms: float = 2.0      # wait after the first queued request
     image_size: int = 256
     denormalize: bool = True
-    refine: str = "none"              # only "none" (lm, gd: Slice D)
+    refine: str = "none"              # none | lm | gd | lm+gd
+    refine_steps: int = 30
+    refine_size: int = 64
+    refine_lr: float = 3e-3
+    refine_robust_c: float = 0.0
+    refine_filter: str = "none"
+    refine_residual: str = "sb"
     input_filter: str = "none"        # none | despeckle | median
     device: str = "cuda"              # cuda | cpu
     queue_factor: int = 4             # queue bound = factor * batch_size
@@ -150,8 +165,7 @@ class ServeConfig:
 @dataclass
 class PredictConfig:
     """The JAX package's ``PredictConfig`` plus ``device``; ``platform`` is
-    accepted and ignored. The ``refine_*`` fields tune the refinement of
-    Slice D: ``refine`` other than ``"none"`` raises."""
+    accepted and ignored."""
     inputs: str = ""                  # BMP directory or glob pattern
     ckpt_dir: str = "checkpoints/run0"  # portable .npz or a port run dir
     model: str = "resnet_sq"
@@ -159,7 +173,7 @@ class PredictConfig:
     batch_size: int = 256
     image_size: int = 256
     denormalize: bool = True          # reference units (a, t in 0..255)
-    refine: str = "none"              # only "none" (lm, gd: Slice D)
+    refine: str = "none"              # none | lm | gd | lm+gd
     refine_steps: int = 30
     refine_size: int = 64
     refine_lr: float = 3e-3
@@ -191,6 +205,24 @@ class GenerateConfig:
     device: str = "cuda"              # cuda | cpu
 
 
+@dataclass
+class FitConfig:
+    """The JAX package's ``FitConfig`` plus ``device``; ``platform`` is
+    accepted and ignored."""
+    loss: str = "explicit"            # explicit | implicit | leastsquares
+    render_size: int = 32
+    learning_rate: float = 1e-3
+    steps: int = 2000
+    seed: int = 0
+    tau: float = 1.5
+    sigmoid_sharpness: float = 260.0
+    optimizer: str = "sgd"            # sgd (visu.py parity) | adam | lm
+    n_views: int = 1                  # > 1 with lm: posed turntable views
+    log_interval: int = 100
+    platform: str = ""                # accepted, ignored (see device)
+    device: str = "cuda"              # cuda | cpu
+
+
 def check_slice(cfg) -> None:
     """Raise ``NotImplementedError`` for an option this port does not run
     yet, naming the ROADMAP.md slice that ports it; for a training config,
@@ -199,11 +231,10 @@ def check_slice(cfg) -> None:
     it)."""
     from sqtpu_torch.models import build_model, MODEL_REGISTRY
 
-    if cfg.model not in MODEL_REGISTRY:
+    if cfg.model not in MODEL_REGISTRY and not (
+            cfg.model == "classical" and not isinstance(cfg, TrainConfig)):
         build_model(cfg.model)  # raises, naming the slice
     later = []
-    if getattr(cfg, "refine", "none") != "none":
-        later.append(f"refine={cfg.refine!r}: Slice D (fit.refine_params)")
     if getattr(cfg, "iso", False):
         later.append("iso: Slice F (the 2019 isometric models)")
     if isinstance(cfg, TrainConfig):
@@ -240,13 +271,11 @@ def check_layout(cfg: TrainConfig, world_size: int) -> None:
 PORTED_LOSSES = (
     "implicit", "explicit", "explicit_sym", "explicit_gauge", "param_mse",
     "supervised", "supervised_sym", "supervised_geo", "supervised_gauge",
-    "implicit_sym", "implicit_gauge", "quaternion", "quaternion_sym")
+    "implicit_sym", "implicit_gauge", "quaternion", "quaternion_sym",
+    "leastsquares")
 
 # The JAX package's other losses, and the ROADMAP.md slice that ports each.
-_LOSS_SLICE = {
-    "leastsquares": "Slice D (ops/losses.py least_squares_loss)",
-    "keras_chamfer": "Slice F (the Keras losses)",
-}
+_LOSS_SLICE = {"keras_chamfer": "Slice F (the Keras losses)"}
 
 
 def _train_options_later(cfg: "TrainConfig") -> list:
@@ -256,8 +285,6 @@ def _train_options_later(cfg: "TrainConfig") -> list:
                      + _LOSS_SLICE.get(cfg.loss, "no such loss"))
     if cfg.pretrained:
         later.append("pretrained: Slice F (torchvision encoder weights)")
-    if cfg.init_base or cfg.freeze_base:
-        later.append("init_base/freeze_base: Slice D (models/refiner.py)")
     if cfg.dtype != "float32":
         later.append(f"dtype={cfg.dtype!r}: Slice F")
     if cfg.profile_dir:

@@ -55,7 +55,7 @@ def test_eval_random_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("option", [
-    {"refine": "lm"}, {"iso": True}, {"model": "refine_sq"}])
+    {"iso": True}, {"model": "resnet_sq6d"}])
 def test_eval_options_outside_the_slice_raise(option, tmp_path):
     cfg = EvalConfig(ckpt_dir=WEIGHTS, n=2, batch_size=2, device="cpu",
                      out_dir=str(tmp_path), **option)
@@ -79,14 +79,15 @@ def test_options_of_slice_c_run(option, tmp_path):
 
 def test_serve_options_outside_the_slice_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SQServer(ServeConfig(ckpt_dir=WEIGHTS, refine="lm", device="cpu"))
+        SQServer(ServeConfig(ckpt_dir=WEIGHTS, model="resnet_sq6d",
+                             device="cpu"))
 
 
 @pytest.mark.parametrize("entry,slice_", [
-    ("predict_refine", "Slice D"), ("generate_iso", "Slice F"),
-    ("single_classical", "Slice D")])
+    ("predict_model", "Slice F"), ("generate_iso", "Slice F"),
+    ("single_model", "Slice F")])
 def test_bulk_options_outside_the_slice_raise(entry, slice_, tmp_path):
-    """What Slices D and F port still raises from the bulk entry points."""
+    """What Slice F ports still raises from the bulk entry points."""
     from sqtpu_torch.evaluate import eval_single
     from sqtpu_torch.generate import generate
     from sqtpu_torch.predict import predict_files
@@ -95,14 +96,15 @@ def test_bulk_options_outside_the_slice_raise(entry, slice_, tmp_path):
     bmp = tmp_path / "x.bmp"
     tbmp.write_bmp(bmp, np.zeros((32, 32), np.uint8))
     with pytest.raises(NotImplementedError, match=slice_):
-        if entry == "predict_refine":
-            predict_files(PredictConfig(ckpt_dir=WEIGHTS, refine="lm",
-                                        device="cpu"), [str(bmp)])
+        if entry == "predict_model":
+            predict_files(PredictConfig(ckpt_dir=WEIGHTS,
+                                        model="resnet_sq6d", device="cpu"),
+                          [str(bmp)])
         elif entry == "generate_iso":
             generate(GenerateConfig(n=1, out=str(tmp_path), iso=True,
                                     device="cpu"))
         else:
-            eval_single(EvalConfig(model="classical", device="cpu"),
+            eval_single(EvalConfig(model="resnet_sq6d", device="cpu"),
                         str(bmp))
 
 

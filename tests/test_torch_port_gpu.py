@@ -553,3 +553,81 @@ def test_filters_and_noise_on_card(cuda_device):
         assert torch.equal(fn(noisy).cpu(), fn(noisy.cpu()))
     only_gauss = depth_noise(gen, clean.to(cuda_device), gaussian=0.02)
     assert (only_gauss.cpu()[clean == 0] == 0).all()
+
+
+# ---- Slice D: the corrector's render, the gd refinement, the batched LM
+
+@pytest.mark.gpu
+def test_kernel_at_the_corrector_setting_on_card(cuda_device):
+    """K3 at the corrector's in-loop setting (48 slabs, 24 bisections,
+    unquantized) against its emulation and its plain version: under 0.1%
+    of the pixels a gray level or more apart, and under 1e-4 of them by a
+    gray level from the emulation (a dropped slab would move whole
+    silhouette edges)."""
+    p = torch.from_numpy(_params(np.random.default_rng(27), 16)).to(
+        cuda_device)
+    got = render_hard_auto(p, 256, n_sweep=48, n_bisect=24, quantize=False)
+    par = hardrender.pack_frames(p, 48)
+    emu, _ = hardrender.emulate_hardrender(par, 256, 48, 24, False)
+    want = trender.render_depth_hard_batch(p, 256, n_bisect=24,
+                                           quantize=False, n_sweep=48)
+    got, emu, want = (x.cpu().numpy() for x in (got, emu, want))
+    assert (np.abs(got - emu) >= 1.0 / 255.0).mean() < 1e-4
+    assert levels_off(got, want) < 1e-3
+    assert ((got * 255) % 1 > 1e-3).any() and got.max() > 0.3
+
+
+@pytest.mark.gpu
+def test_refine_gd_through_the_kernels_on_card(cuda_device):
+    """``refine_params(method="gd")`` on the card (K1/K2, 10 Adam steps,
+    B=16) against the same steps on the emulated loss on the card: one
+    K1 and one K2 launch a step; the params a median 1e-5 apart, and at
+    most 2% of them 1e-4 or more (Adam's first step is ±lr on every
+    component, so a gradient component inside the kernels' tolerance of
+    zero may step the other way)."""
+    from sqtpu_torch import fit
+    from sqtpu_torch.ops import geometry
+
+    rng = np.random.default_rng(28)
+    truth = torch.from_numpy(_params(rng, 16)).to(cuda_device)
+    imgs = render_hard_auto(truth, 256, n_sweep=64, n_bisect=16)
+    p0 = truth + torch.from_numpy(rng.normal(
+        scale=0.02, size=(16, 12)).astype(np.float32)).to(cuda_device)
+    p0 = torch.cat([p0[:, :8], torch.nn.functional.normalize(p0[:, 8:],
+                                                             dim=-1)], -1)
+    before = (K.fwd_launches, K.bwd_launches)
+    got = fit.refine_params(imgs, p0, "gd", 10, 64)
+    assert (K.fwd_launches, K.bwd_launches) == (before[0] + 10,
+                                                before[1] + 10)
+    ref, _ = fit._fit_scan(p0, lambda q: 16 * K.implicit_loss_emulated(
+        imgs, q, 64), 10, 3e-3, "adam")
+    ref = geometry.clamp_params(ref)
+    gap = (got - ref).abs().cpu().numpy()
+    assert np.median(gap) < 1e-5 and (gap >= 1e-4).mean() <= 0.02
+    assert (got - p0).abs().max() > 1e-3
+
+
+@pytest.mark.gpu
+def test_batched_lm_on_card_matches_the_cpu(cuda_device):
+    """The batched LM (``recover`` and ``refine_params("lm")``, 30
+    iterations on 32² points) on the card in float64 against the CPU's,
+    8 recorded truths: rtol 1e-7 with atol 1e-8 (cuBLAS and cuSOLVER sum
+    in another order than LAPACK; 30 iterations carry that to ~4e-8 between
+    two CPU implementations); the eigenvector sign rule makes the moments
+    init the same on both."""
+    import os
+
+    from sqtpu_torch import fit
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(root, "runs", "eval_c4c3", "accs.npz")) as d:
+        truth = torch.from_numpy(d["true_params"][:8].astype(np.float64))
+    imgs = trender.render_depth_hard_batch(truth, 128, n_bisect=16,
+                                           quantize=True, n_sweep=64)
+    p0 = truth + 0.02 * torch.from_numpy(
+        np.random.default_rng(29).normal(size=(8, 12)))
+    for run in (lambda x, q: fit.recover(x, 32, 30)[0],
+                lambda x, q: fit.refine_params(x, q, "lm", 30, 32)):
+        want = run(imgs, p0).numpy()
+        got = run(imgs.to(cuda_device), p0.to(cuda_device)).cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-7, atol=1e-8)

@@ -149,8 +149,16 @@ def test_conversion_raises_on_mismatch(fault):
 
 
 def test_build_model_names_later_slices():
+    """The models Slice F ports raise, naming it; ``refine_sq`` builds
+    since Slice D; any other name is the JAX registry's KeyError
+    (``classical`` among them: an evaluation mode, not a model)."""
+    from sqtpu_torch.models import IterativeSQ
+
     assert isinstance(build_model("resnet_sq"), ResNetSQ)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Slice D"):
-        build_model("refine_sq")
-    with pytest.raises(ValueError):
-        build_model("no_such_model")
+    assert isinstance(build_model("refine_sq", n_refine=1, n_sweep=8),
+                      IterativeSQ)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Slice F"):
+        build_model("resnet_sq6d")
+    for name in ("no_such_model", "classical"):
+        with pytest.raises(KeyError):
+            build_model(name)

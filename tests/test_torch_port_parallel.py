@@ -227,5 +227,23 @@ def test_check_slice_reads_the_launchers_world(monkeypatch):
 
 
 def test_refine_layout_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="Slice D"):
-        dryrun.dryrun(2, "cpu", layouts=("refine-dp",))
+    """The refine-dp layout, ported with Slice D (its gate runs in
+    tests/test_torch_port_parallel_dryrun.py): data-parallel explicit_sym
+    on the JAX dryrun's corrector (one pass, 8 slabs), the base from the
+    c4 artifact, the corrector at its identity init."""
+    import torch
+
+    from sqtpu_torch.models import IterativeSQ
+
+    n_grid, spec = dryrun._layout_spec("refine-dp", 2, torch.device("cpu"))
+    cfg = spec["cfg"]
+    assert n_grid == 1 and cfg.model == "refine_sq" and cfg.use_pallas
+    assert cfg.loss == "explicit_sym" and "dp_seed" in spec
+    model = dryrun.build_resnet(spec["weights"], torch.device("cpu"),
+                                cfg.model)
+    assert isinstance(model, IterativeSQ)
+    assert (model.n_refine, model.n_sweep) == (1, 8)
+    base = dryrun.build_resnet(spec["weights"], torch.device("cpu"))
+    for k, v in base.state_dict().items():
+        assert torch.equal(model.base.state_dict()[k], v), k
+    assert torch.count_nonzero(model.refine.delta.weight) == 0

@@ -32,6 +32,7 @@ def test_dryrun_on_two_cpu_ranks(capsys):
     assert "convergence gate ok" in printed
     assert out["grid-sharded-kernel"][0]["layout"] == (1, 2)
     assert out["kernel-dp"][0]["layout"] == (2, 1)
+    assert out["refine-dp"][0]["layout"] == (2, 1)  # the Slice D corrector
 
 
 # ---- the trainer through the launcher ---------------------------------------

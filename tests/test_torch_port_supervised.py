@@ -222,7 +222,8 @@ def test_elong_weights_match_jax(branch_batch):
 
 
 def test_unported_loss_raises_in_the_branch():
+    """The loss Slice F ports (``leastsquares`` runs since Slice D)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tloop._compute_loss(TrainConfig(loss="leastsquares"),
+        tloop._compute_loss(TrainConfig(loss="keras_chamfer"),
                             torch.zeros(2, 12), torch.zeros(2, 8, 8, 1),
                             torch.zeros(2, 12))
