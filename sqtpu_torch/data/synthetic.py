@@ -5,12 +5,15 @@ write (:func:`save_pairs`).
 Counterpart of ``sample_params`` and ``make_batch`` in
 ``sqtpu/data/synthetic.py:27-100``: a ~ U(25, 75)/255, e ~ U(0.1, 1.0),
 t ~ (128 + U(−40, 40))/255, q Shoemake-uniform, then the canonical gauge
-a1 >= a2. The numbers come from a ``torch.Generator``, so they differ from
-``jax.random``'s; the distribution is the same.
+a1 >= a2; the isometric variant (``iso``, the 2019 data) fixes
+q = (1, 1, 1, 0)/√3 and keeps the independent sizes. The numbers come
+from a ``torch.Generator``, so they differ from ``jax.random``'s; the
+distribution is the same.
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -30,15 +33,20 @@ def _uniform(shape, lo, hi, generator, dtype, device):
 
 def sample_params(batch: int, generator: torch.Generator,
                   dtype=torch.float32, device=None,
-                  canonical: bool = True) -> torch.Tensor:
-    """(B, 12) random rotation-data parameters in normalized units.
-
-    ``device`` defaults to the generator's device."""
+                  canonical: bool = True, iso: bool = False) -> torch.Tensor:
+    """(B, 12) random parameters in normalized units. ``canonical``
+    applies to rotation data only: ``iso`` data keep the reference's
+    independent sizes under the one fixed view (no rotation ambiguity to
+    resolve). ``device`` defaults to the generator's device."""
     device = generator.device if device is None else device
     a = _uniform((batch, 3), 25 / 255, 75 / 255, generator, dtype, device)
     e = _uniform((batch, 2), 0.1, 1.0, generator, dtype, device)
     t = (128.0 + _uniform((batch, 3), -40.0, 40.0, generator, dtype,
                           device)) / 255.0
+    if iso:
+        q = torch.tensor([1.0, 1.0, 1.0, 0.0], dtype=dtype, device=device)
+        q = (q / math.sqrt(3.0)).expand(batch, 4)
+        return torch.cat([a, e, t, q], dim=-1)
     q = quat.random_uniform((batch,), generator, dtype, device)
     p = torch.cat([a, e, t, q], dim=-1)
     return canonicalize_gauge(p) if canonical else p
@@ -48,17 +56,14 @@ def make_batch(generator: torch.Generator, batch: int, image_size: int = 256,
                renderer: str = "hard", iso: bool = False,
                rows: slice | None = None):
     """One (images, labels) batch on the generator's device: images
-    (B, S, S, 1) depth maps in [0, 1], labels (B, 12). ``hard`` renders
+    (B, S, S, 1) depth maps in [0, 1], labels (B, 12) (the isometric view
+    with ``iso``). ``hard`` renders
     with the ray-cast renderer at the training sweep (48 slabs, 12
     bisections, quantized; K3 on the card); ``soft`` with the soft
     renderer at τ 1.5, sharpness 260. ``rows`` keeps only those rows of
     the batch and renders only them: a rank's share of the global batch,
     drawn from the same stream (each image is rendered on its own)."""
-    if iso:
-        raise NotImplementedError(
-            "iso data is not ported yet: ROADMAP.md Slice F (the 2019 "
-            "isometric models)")
-    p = sample_params(batch, generator)
+    p = sample_params(batch, generator, iso=iso)
     if rows is not None:
         p = p[rows]
     if renderer == "hard":

@@ -16,6 +16,11 @@ so a noisy run sees the same shapes as a clean run with the same seed.
 (:func:`sqtpu_torch.fit.refine_params`); ``--model classical`` runs no
 network: the moments init and ``refine_steps`` LM iterations on
 ``refine_size``² points of each image (:func:`classical_recover_fn`).
+The narrower models are scored by the JAX package's protocols: a model
+of 8 parameters (``keras_iso``) sees the isometric view (``--iso true``,
+required) and the known view quaternion is padded in; a model of 4 (the
+rotation-only ``generic_sq``) has the true size, shape and position
+padded in, so its rot-IoU and angles are the real metrics.
 
 Usage::
 
@@ -25,6 +30,8 @@ Usage::
     python -m sqtpu_torch.evaluate --model classical --n 1000 \
         --batch-size 125 [--refine-robust-c 4.685 --refine-filter median]
     python -m sqtpu_torch.evaluate --ckpt-dir WEIGHTS.npz --refine lm
+    python -m sqtpu_torch.evaluate --model keras_iso --iso true \
+        --ckpt-dir RUN_DIR --n 250 --batch-size 125
 """
 
 from __future__ import annotations
@@ -70,7 +77,7 @@ def load_eval_state(cfg, device: torch.device) -> torch.nn.Module:
         name = load_config(best, TrainConfig).model
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)  # the random init, if it is kept, is seeded
-        model = build_model(name)
+        model = build_model(name, cfg.image_size)
     if cfg.ckpt_dir.endswith(".npz"):
         load_weights_npz(cfg.ckpt_dir, model)
     elif checkpoint_exists(best):
@@ -88,7 +95,8 @@ def load_eval_state(cfg, device: torch.device) -> torch.nn.Module:
 
 @torch.inference_mode()
 def predict(model: torch.nn.Module, imgs: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, 1) or (B, H, W) images -> (B, 12) params (eval mode)."""
+    """(B, H, W, 1) or (B, H, W) images -> (B, k) params (eval mode; k
+    the model's width, 12 for the full family)."""
     return params_vector(model(imgs))
 
 
@@ -164,7 +172,15 @@ def eval_random(cfg: EvalConfig) -> dict:
     device = resolve_device(cfg.device)
     classical = cfg.model == "classical"
     width = OUTPUT_DIMS.get(cfg.model, 12)
+    if width == 8 and not cfg.iso:
+        # scored on random views with the true quaternion padded in, a
+        # model that never sees rotation would report rot-IoU 1, angle 0
+        raise ValueError(
+            f"model {cfg.model!r} regresses 8 isometric-view parameters; "
+            "pass --iso true (the py/test_isometry.py protocol)")
     if cfg.refine != "none" and width != 12:
+        # the width-8 and width-4 protocols pad true values in: refined,
+        # they would score a fit started from the truth, not the model
         raise ValueError(
             f"--refine {cfg.refine!r} requires a 12-parameter model; "
             f"{cfg.model!r} predicts {width}")
@@ -185,8 +201,17 @@ def eval_random(cfg: EvalConfig) -> dict:
     noise_gen = torch.Generator(device=device)
     noise_gen.manual_seed(cfg.seed * 1_000_003 + NOISE_STREAM)
 
+    def pad(p_true: torch.Tensor, p_pred: torch.Tensor) -> torch.Tensor:
+        """A narrower prediction with the true values it lacks."""
+        if width == 8:     # the fixed, known view quaternion
+            return torch.cat([p_pred, p_true[:, 8:12]], dim=-1)
+        if width == 4:     # the true size, shape and position
+            return torch.cat([p_true[:, :8], p_pred], dim=-1)
+        return p_pred
+
     def batch_eval():
-        p_true = sample_params(cfg.batch_size, gen, device=device)
+        p_true = sample_params(cfg.batch_size, gen, device=device,
+                               iso=cfg.iso)
         imgs = render_hard_auto(p_true, cfg.image_size, n_sweep=EVAL_SWEEP,
                                 n_bisect=EVAL_BISECT, quantize=True)
         if noisy:
@@ -194,7 +219,7 @@ def eval_random(cfg: EvalConfig) -> dict:
                                dropout=cfg.noise_dropout,
                                salt=cfg.noise_salt, quantize=True)
         imgs = apply_prefilter(imgs, cfg.input_filter)[..., None]
-        p_pred = refine(imgs[..., 0], infer(imgs))
+        p_pred = refine(imgs[..., 0], pad(p_true, infer(imgs)))
         triple = metrics.iou_full(p_true, p_pred, cfg.acc_render_size)
         mae = torch.abs(p_pred - p_true)
         # MAE against the gauge-aligned truth, its quaternion flipped to

@@ -6,7 +6,8 @@ Counterpart of ``sqtpu/generate.py``. The files are the JAX package's:
 ``data_labels.csv`` with the rows ``fn, a1..a3, e1, e2, t1..t3, m11..m33,
 q1..q4`` (a and t in 0..255 world units, ``%f``). The parameters are
 sampled from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
-same distribution as the JAX package's, not the same draws). ``backend``
+same distribution as the JAX package's, not the same draws); ``iso``
+fixes the 2019 isometric view. ``backend``
 picks the renderer: ``device`` the hard ray-caster on ``device`` (K3 on
 the card, its plain version on the CPU; the full sweep, 20 bisections,
 quantized), ``native`` the host C++ scanner (OpenMP).
@@ -14,7 +15,7 @@ quantized), ``native`` the host C++ scanner (OpenMP).
 Usage::
 
     python -m sqtpu_torch.generate --n 1000 --out data/rot \\
-        [--device cpu] [--backend native]
+        [--device cpu] [--backend native] [--iso true]
 """
 
 from __future__ import annotations
@@ -54,10 +55,6 @@ def generate(cfg: GenerateConfig) -> None:
     if cfg.backend not in ("device", "native"):
         raise ValueError(f"backend must be device or native, got "
                          f"{cfg.backend!r}")
-    if cfg.iso:
-        raise NotImplementedError(
-            "iso data is not ported yet: ROADMAP.md Slice F (the 2019 "
-            "isometric models)")
     device = resolve_device(cfg.device)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
@@ -66,7 +63,7 @@ def generate(cfg: GenerateConfig) -> None:
     with open(os.path.join(cfg.out, cfg.csv_name), "w") as csv:
         while n_done < cfg.n:
             b = min(cfg.batch_size, cfg.n - n_done)
-            p = sample_params(b, gen)
+            p = sample_params(b, gen, iso=cfg.iso)
             imgs = render_batch(p, cfg)
             p_np = p.cpu().numpy()
             M = quat.to_matrix(p[:, 8:12]).cpu().numpy()

@@ -14,7 +14,8 @@ gradients only through :func:`apply_delta`'s additive chain. The one
 :class:`RefineBlock` instance is called ``n_refine`` times, so in training
 its BatchNorm statistics move once per call, each move seeing the one
 before, as in flax; ``remat`` recomputes both encoders in the backward
-with their statistics left alone.
+with their statistics left alone. ``dtype`` is flax's, as in
+:mod:`sqtpu_torch.models.resnet` (the delta head computes in it too).
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sqtpu_torch.models.resnet import ResNet18, ResNetSQ, init_like_flax
+from sqtpu_torch.models.resnet import (
+    Linear, ResNet18, ResNetSQ, init_like_flax,
+)
 from sqtpu_torch.ops import geometry, kernels
 from sqtpu_torch.ops import quaternion as quat
 from sqtpu_torch.utils.checkpoint import load_weights_npz
@@ -50,12 +53,12 @@ class RefineBlock(nn.Module):
     params -> an 11-vector delta. ResNet18 on the two channels, then
     [features, p] -> Dense(fcn) -> Dense(fcn) -> Dense(11, zeros)."""
 
-    def __init__(self, fcn: int = 256):
+    def __init__(self, fcn: int = 256, dtype=None):
         super().__init__()
-        self.encoder = ResNet18(in_channels=2)
-        self.fc1 = nn.Linear(self.encoder.out_features + 12, fcn)
-        self.fc2 = nn.Linear(fcn, fcn)
-        self.delta = nn.Linear(fcn, 11)
+        self.encoder = ResNet18(in_channels=2, dtype=dtype)
+        self.fc1 = Linear(self.encoder.out_features + 12, fcn, dtype=dtype)
+        self.fc2 = Linear(fcn, fcn, dtype=dtype)
+        self.delta = Linear(fcn, 11, dtype=dtype)
         init_like_flax(self)
         with torch.no_grad():
             self.delta.weight.zero_()
@@ -78,12 +81,12 @@ class IterativeSQ(nn.Module):
     and 24 bisections, at the input's size."""
 
     def __init__(self, n_refine: int = 2, fcn: int = 256,
-                 delta_scale: float = 0.2, n_sweep: int = 48):
+                 delta_scale: float = 0.2, n_sweep: int = 48, dtype=None):
         super().__init__()
         self.n_refine, self.delta_scale = n_refine, delta_scale
         self.n_sweep = n_sweep
-        self.base = ResNetSQ(fcn)
-        self.refine = RefineBlock(fcn)
+        self.base = ResNetSQ(fcn, dtype=dtype)
+        self.refine = RefineBlock(fcn, dtype=dtype)
 
     def forward(self, x: torch.Tensor, remat: bool = False):
         """``x``: (B, H, W, 1) or (B, H, W) depth images in [0, 1];

@@ -12,6 +12,15 @@ stride 2 included; (3, 3) on the 7x7 stem; the max pool pads (1, 1) with
 model built here starts from flax's initial distribution
 (:func:`init_like_flax`).
 
+``dtype`` is flax's: with ``torch.bfloat16`` every convolution and dense
+layer of the encoder and of ``fc1``/``fc2`` casts its input and its
+parameters to bfloat16 and computes there (:class:`Conv2d`,
+:class:`Linear`); BatchNorm reduces and normalizes in float32 and casts
+its output back; the heads compute in float32 (flax promotes their
+bfloat16 input against float32 kernels). The parameters, their
+gradients and the running statistics stay float32, and so do the four
+outputs.
+
 ``forward(x, remat=True)`` recomputes the encoder's stem and stages during
 the backward instead of keeping their activations (the JAX package's
 ``remat``, ``jax.checkpoint`` of the loss function): memory for operations,
@@ -31,7 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from sqtpu_torch.models.heads import (
-    PositionHead, RotationHead, ShapeHead, SizeHead,
+    PositionHead, Rotation6DHead, RotationHead, ShapeHead, SizeHead,
 )
 
 BN_EPS = 1e-5
@@ -57,6 +66,12 @@ class BatchNorm(nn.BatchNorm2d):
     data_group = None
 
     def forward(self, x):
+        """Statistics and normalization in the parameters' dtype; the
+        output in ``x``'s (flax: float32 reductions, then ``asarray(y,
+        dtype)``)."""
+        return self._forward(x.to(self.weight.dtype)).to(x.dtype)
+
+    def _forward(self, x):
         if not self.training:
             return super().forward(x)
         if self.data_group is not None:
@@ -188,35 +203,75 @@ def init_like_flax(model: nn.Module) -> nn.Module:
     """Re-initialize ``model`` as flax initializes the JAX model:
     convolution and dense kernels lecun_normal (fan_in = in_channels ·
     kh · kw, or in_features), biases 0, BatchNorm scale 1 and bias 0,
-    running mean 0 and variance 1. Draws from torch's global generator."""
+    running mean 0 and variance 1. A layer with a ``kernel_scale`` draws
+    its kernel from flax's ``variance_scaling(kernel_scale, "fan_in",
+    "truncated_normal")`` instead, and one with a ``flax_bias`` method
+    sets its bias with it. Draws from torch's global generator."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
-            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            scale = getattr(m, "kernel_scale", 1.0)
+            std = math.sqrt(scale / fan_in) / _TRUNC_STD
             nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std)
             if m.bias is not None:
                 m.bias.zero_()
+                if hasattr(m, "flax_bias"):
+                    m.flax_bias(m.bias)
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
     return model
+
+
+def _cast(t, dtype):
+    return t if t is None or dtype is None else t.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``dtype`` when one is given (flax's
+    ``dtype``: input, kernel and bias cast to it, the output in it); the
+    parameters keep their own dtype."""
+
+    def __init__(self, *args, dtype=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        d = self.compute_dtype
+        return self._conv_forward(_cast(x, d), _cast(self.weight, d),
+                                  _cast(self.bias, d))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in ``dtype`` when one is given, as
+    :class:`Conv2d`."""
+
+    def __init__(self, *args, dtype=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        d = self.compute_dtype
+        return F.linear(_cast(x, d), _cast(self.weight, d),
+                        _cast(self.bias, d))
 
 
 class BasicBlock(nn.Module):
     """ResNet v1 basic block (3x3 + 3x3, projection shortcut on stride or
     width change)."""
 
-    def __init__(self, in_features: int, features: int, stride: int = 1):
+    def __init__(self, in_features: int, features: int, stride: int = 1,
+                 dtype=None):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_features, features, 3, stride, padding=1,
-                               bias=False)
+        self.conv1 = Conv2d(in_features, features, 3, stride, padding=1,
+                            bias=False, dtype=dtype)
         self.bn1 = _bn(features)
-        self.conv2 = nn.Conv2d(features, features, 3, 1, padding=1,
-                               bias=False)
+        self.conv2 = Conv2d(features, features, 3, 1, padding=1, bias=False,
+                            dtype=dtype)
         self.bn2 = _bn(features)
         self.project = stride != 1 or in_features != features
         if self.project:
-            self.downsample_conv = nn.Conv2d(in_features, features, 1,
-                                             stride, bias=False)
+            self.downsample_conv = Conv2d(in_features, features, 1, stride,
+                                          bias=False, dtype=dtype)
             self.downsample_bn = _bn(features)
 
     def forward(self, x):
@@ -234,9 +289,10 @@ class ResNet18(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  widths: Sequence[int] = (64, 128, 256, 512),
-                 in_channels: int = 1):
+                 in_channels: int = 1, dtype=None):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, padding=3, bias=False)
+        self.conv1 = Conv2d(in_channels, 64, 7, 2, padding=3, bias=False,
+                            dtype=dtype)
         self.bn1 = _bn(64)
         self.stages = []  # the blocks of each stage, in order
         cin = 64
@@ -245,7 +301,7 @@ class ResNet18(nn.Module):
             for block in range(n_blocks):
                 stride = 2 if (stage > 0 and block == 0) else 1
                 name = f"layer{stage + 1}_{block}"
-                self.add_module(name, BasicBlock(cin, width, stride))
+                self.add_module(name, BasicBlock(cin, width, stride, dtype))
                 blocks.append(getattr(self, name))
                 cin = width
             self.stages.append(nn.Sequential(*blocks))
@@ -265,17 +321,19 @@ class ResNet18(nn.Module):
 
 class ResNetSQ(nn.Module):
     """ResNet18 -> MLP(256, 256) -> four heads. Returns
-    ``(size, shape, position, quaternion)``."""
+    ``(size, shape, position, quaternion)``. ``rot6d``: the continuous 6D
+    rotation head (:class:`Rotation6DHead`) in place of the normalized
+    quaternion; ``dtype``: see the module's docstring."""
 
-    def __init__(self, fcn: int = 256):
+    def __init__(self, fcn: int = 256, dtype=None, rot6d: bool = False):
         super().__init__()
-        self.encoder = ResNet18()
-        self.fc1 = nn.Linear(self.encoder.out_features, fcn)
-        self.fc2 = nn.Linear(fcn, fcn)
+        self.encoder = ResNet18(dtype=dtype)
+        self.fc1 = Linear(self.encoder.out_features, fcn, dtype=dtype)
+        self.fc2 = Linear(fcn, fcn, dtype=dtype)
         self.head_size = SizeHead(fcn)
         self.head_shape = ShapeHead(fcn)
         self.head_position = PositionHead(fcn)
-        self.head_rotation = RotationHead(fcn)
+        self.head_rotation = (Rotation6DHead if rot6d else RotationHead)(fcn)
         init_like_flax(self)
 
     def forward(self, x, remat: bool = False):

@@ -3,10 +3,10 @@
 Counterpart of ``sqtpu/ops/losses.py``: the explicit occupancy-grid MSE
 (:49-79), the implicit (self-supervised) depth loss (:38-43, :87-106), the
 least-squares Solina-Bajcsy energy (:114-148), the quaternion and
-gauge-aware supervised losses (:155-318) and the plain parameter MSE
-(:325-340). The Keras losses belong to a later slice (ROADMAP.md Slice
-F). Gradients are torch autograd's; these are the plain versions the
-kernels K1/K2 and K4/K5 are held against.
+gauge-aware supervised losses (:155-318), the plain parameter MSE and MAE
+(:325-345) and the 2019 Keras losses (:351-414). Gradients are torch
+autograd's; these are the plain versions the kernels K1/K2 and K4/K5 are
+held against.
 """
 
 from __future__ import annotations
@@ -214,3 +214,71 @@ def canonicalize_gauge(p: torch.Tensor) -> torch.Tensor:
     q_sw = _right_multiply(q, SQ_GAUGE_QUATS_SWAP[0])
     return torch.cat([torch.where(swap, _swap_sizes(a), a), e, t,
                       torch.where(swap, q_sw, q)], dim=-1)
+
+
+def param_mae(pred: torch.Tensor, true: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(pred - true))
+
+
+# ---------------------------------------------------------------------------
+# The 2019 TF "chamfer" loss (an occupancy-field MSE in world units)
+# ---------------------------------------------------------------------------
+
+def torch_to_keras_norm(p: torch.Tensor) -> torch.Tensor:
+    """A torch-convention 12-vector (a/255, e, t/255, q) in the Keras
+    convention ((a − 25)/50, e, t/255, q; quirk Q10): only the sizes
+    change, a_k = (255·a_t − 25)/50."""
+    return torch.cat([p[..., 0:3] * 5.1 - 0.5, p[..., 3:]], dim=-1)
+
+
+def _keras_field(p: torch.Tensor, size: int = 64) -> torch.Tensor:
+    """The 2019 TF inside-outside variant of a (B, 12) batch on the
+    world-unit grid arange(−size/2, size/2)³: (B, size, size, size).
+    Params map a -> 12.5a + 6.25, t -> 64t − 32; the rotation is not
+    conjugated and t is rotated by q; |x|^(2/e) powers and no final ^e1.
+    E = (A + B)^(e2/e1) is taken in log space with the exponent capped at
+    80, so it stays finite (≤ exp(80)) where the direct power overflows
+    float32 and poisons the gradient with inf·0."""
+    ax = torch.arange(-(size // 2), size // 2, dtype=p.dtype, device=p.device)
+    a, e, t, q = geometry.split_params(p)
+    a = a * 12.5 + 6.25
+    t = t * 64.0 - 32.0
+    rot = quat.to_matrix(q)
+    tr = quat.rotate(t, q)
+    X, Y, Z = ax[:, None, None], ax[None, :, None], ax[None, None, :]
+
+    def s(v):  # a per-sample scalar, broadcast over the grid
+        return v[:, None, None, None]
+
+    def coord(i):
+        return (s(rot[:, i, 0]) * X + s(rot[:, i, 1]) * Y
+                + s(rot[:, i, 2]) * Z - s(tr[:, i])) / s(a[:, i])
+
+    x, y, z = coord(0), coord(1), coord(2)
+    A = torch.abs(x) ** (2.0 / s(e[:, 1]))
+    B = torch.abs(y) ** (2.0 / s(e[:, 1]))
+    C = torch.abs(z) ** (2.0 / s(e[:, 0]))
+    log_d = torch.log(torch.clamp(A + B, min=1e-30))
+    E = torch.exp(torch.clamp((s(e[:, 1]) / s(e[:, 0])) * log_d, max=80.0))
+    return E + C
+
+
+def keras_occupancy_mse(true_p: torch.Tensor, pred_p: torch.Tensor,
+                        size: int = 64, clip: float = 0.0) -> torch.Tensor:
+    """The 2019 ``chamfer_loss`` (an occupancy-field MSE despite its name,
+    quirk Q9), batched. ``clip > 0`` caps both fields at that value first:
+    uncapped, the float32 field's square overflows at e = 0.1; the cap
+    keeps the signal around the surface band F = 1. 0 is the reference's
+    uncapped loss."""
+    f_t = _keras_field(true_p, size)
+    f_p = _keras_field(pred_p, size)
+    if clip > 0:
+        f_t = torch.clamp(f_t, max=clip)
+        f_p = torch.clamp(f_p, max=clip)
+    return torch.mean((f_t - f_p) ** 2)
+
+
+def keras_quaternion_loss(q_true: torch.Tensor,
+                          q_pred: torch.Tensor) -> torch.Tensor:
+    """Euclidean quaternion distance, per sample."""
+    return torch.sqrt(torch.sum((q_true - q_pred) ** 2, dim=-1))

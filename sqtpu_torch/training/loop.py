@@ -1,12 +1,18 @@
-"""The training loop of the port: ResNetSQ or the ``refine_sq`` corrector
-trained self-supervised (the implicit loss) or supervised (the explicit
-loss and the parameter-space anchors), on data rendered on the device.
+"""The training loop of the port: every model of the registry trained
+self-supervised (the implicit loss) or supervised (the explicit loss, the
+parameter-space anchors, the 2019 losses), on data rendered on the
+device.
 
-Counterpart of ``sqtpu/training/loop.py`` (:41-243, :246-749) without the
-``keras_chamfer`` loss (ROADMAP.md Slice F). ``init_base`` loads a
-``resnet_sq`` weights file into the corrector's base, and ``freeze_base``
-zeroes the base's gradients (its BatchNorm statistics still move: the
-base runs in train mode).
+Counterpart of ``sqtpu/training/loop.py`` (:41-243, :246-749).
+``init_base`` loads a ``resnet_sq`` weights file into the corrector's
+base, and ``freeze_base`` zeroes the base's gradients (its BatchNorm
+statistics still move: the base runs in train mode). ``pretrained`` loads
+a torchvision-layout resnet18 state_dict into the encoder
+(:mod:`sqtpu_torch.models.torch_port`); ``dtype=bfloat16`` builds the
+model with flax's ``dtype`` (:mod:`sqtpu_torch.models.resnet`: the
+parameters, the optimizer and the checkpoints stay float32);
+``profile_dir`` wraps the epochs in a ``torch.profiler`` trace
+(:mod:`sqtpu_torch.utils.profiling`).
 One train step runs the model in train mode, the loss (on the card K1/K2
 through ``implicit_loss_auto``, K4 through ``explicit_loss_auto``), the
 backward and the Adam update; a validation step runs the model in eval mode
@@ -44,6 +50,7 @@ trainer is one rank and runs no collective.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Optional
@@ -55,9 +62,13 @@ from sqtpu_torch.data.augment import depth_noise
 from sqtpu_torch.data.datasets import DepthDataset
 from sqtpu_torch.data.labels import parse_csv_torch
 from sqtpu_torch.data.synthetic import make_batch, save_pairs
-from sqtpu_torch.models import build_model, params_vector, warm_start_base
+from sqtpu_torch.models import (
+    build_model, load_state_dict_file, load_torchvision_resnet18,
+    params_vector, warm_start_base,
+)
 from sqtpu_torch.models.resnet import use_global_batch_stats
-from sqtpu_torch.ops import losses, metrics
+from sqtpu_torch.ops import geometry, losses, metrics
+from sqtpu_torch.ops import quaternion as quat
 from sqtpu_torch.ops.kernels import launch_counts
 from sqtpu_torch.parallel.mesh import (
     Layout, all_reduce_sum, average_gradients, barrier, broadcast_state,
@@ -74,8 +85,11 @@ from sqtpu_torch.utils.checkpoint import (
     checkpoint_exists, load_checkpoint, load_config, load_weights_npz,
     save_checkpoint,
 )
-from sqtpu_torch.utils.config import TrainConfig, check_slice, resolve_device
+from sqtpu_torch.utils.config import (
+    MODEL_DTYPES, TrainConfig, check_slice, resolve_device,
+)
 from sqtpu_torch.utils.logging import MetricLogger, NanGuard, Throughput
+from sqtpu_torch.utils.profiling import trace
 
 # Offsets of the random streams under one seed (an epoch adds its index);
 # the augmentation's are far from the others' epochs.
@@ -146,8 +160,9 @@ def _explicit_geo(cfg: TrainConfig, pred, labels, layout: Layout):
     through K4/K5 on the card with ``use_pallas`` (gradient with respect
     to pred only; the labels are constants here), else the plain loss."""
     if cfg.use_pallas:
-        return explicit_loss_dp(labels[..., :12], pred[..., :12], layout,
-                                cfg.render_size, sharp=cfg.explicit_sharp)
+        return explicit_loss_dp(labels[..., :12], pred[..., :12].float(),
+                                layout, cfg.render_size,
+                                sharp=cfg.explicit_sharp)
     return data_mean(losses.explicit_loss(
         labels[..., :12], pred[..., :12], cfg.render_size,
         sharp=cfg.explicit_sharp), layout)
@@ -170,16 +185,22 @@ def _compute_loss(cfg: TrainConfig, pred, imgs, labels,
     then this rank's rows): the implicit loss through the grid-sharded
     loss when the grid axis is larger than 1, the kernel losses through
     their data-parallel versions (:78-107, :58-75), every other batch
-    mean averaged over the data group. ``keras_chamfer`` raises in
-    :func:`check_slice` before training starts."""
+    mean averaged over the data group.
+
+    The kernels take float32 params: a bfloat16 prediction (the Keras
+    nets' output layer computes in the model's dtype) is cast to float32
+    before them. The JAX package's dispatch sends it to its plain losses
+    instead, which promote it to float32 where it meets the float32
+    labels and images; on the card the port has no such fallback."""
     layout = layout or Layout()
     if cfg.loss == "implicit":
         if layout.n_grid > 1:
             return implicit_loss_gridsharded(
-                imgs[..., 0], pred, layout, cfg.render_size, cfg.tau,
-                cfg.sigmoid_sharpness, use_pallas=cfg.use_pallas)
+                imgs[..., 0], pred.float() if cfg.use_pallas else pred,
+                layout, cfg.render_size, cfg.tau, cfg.sigmoid_sharpness,
+                use_pallas=cfg.use_pallas)
         if cfg.use_pallas:
-            return implicit_loss_dp(imgs[..., 0], pred, layout,
+            return implicit_loss_dp(imgs[..., 0], pred.float(), layout,
                                     cfg.render_size, cfg.tau,
                                     cfg.sigmoid_sharpness)
         return data_mean(losses.implicit_loss(
@@ -213,6 +234,8 @@ def _compute_loss(cfg: TrainConfig, pred, imgs, labels,
                + cfg.geo_weight * losses.rotation_moment_loss(
                    pred[..., 8:12], labels, reduce=False))
         return _weighted_mean(cfg, per, labels, layout)
+    if cfg.loss == "keras_chamfer":
+        return data_mean(_keras_chamfer(pred, labels), layout)
     if cfg.loss == "implicit_sym":
         impl = _compute_loss(dataclasses.replace(cfg, loss="implicit"), pred,
                              imgs, labels, layout)
@@ -244,8 +267,24 @@ def _compute_loss(cfg: TrainConfig, pred, imgs, labels,
         per = losses.param_gauge_loss(pred[..., :12], labels, reduce=False)
         return impl + cfg.aux_weight * _weighted_mean(cfg, per, labels,
                                                       layout)
-    raise NotImplementedError(f"loss {cfg.loss!r} is not ported yet "
-                              "(see ROADMAP.md)")
+    raise ValueError(f"unknown loss {cfg.loss}")
+
+
+def _keras_chamfer(pred, labels):
+    """The 2019 rotation regime's occupancy-field MSE, both sides in the
+    Keras normalization, with the JAX package's repairs for training: the
+    field sees the params clamped to the valid box (``jnp.clip``'s
+    derivative: 1 inside, 0 outside, 1/2 at a bound) with a normalized
+    quaternion, a quadratic penalty pulls out-of-box raw outputs back in
+    (against the clamped params with no gradient), and the field is
+    capped at 100 (the uncapped float32 square overflows at e = 0.1)."""
+    pred12 = pred[..., :12]
+    clamped = torch.cat([geometry.clamp_params(pred12)[..., :8],
+                         quat.normalize(pred12[..., 8:12])], dim=-1)
+    range_penalty = torch.mean((pred12 - clamped.detach()) ** 2)
+    return losses.keras_occupancy_mse(
+        losses.torch_to_keras_norm(labels[..., :12]),
+        losses.torch_to_keras_norm(clamped), clip=100.0) + range_penalty
 
 
 def zero_frozen_grads(model: torch.nn.Module, cfg: TrainConfig) -> None:
@@ -307,10 +346,13 @@ def make_train_step(state: TrainState, cfg: TrainConfig,
 
 def make_eval_step(state: TrainState, cfg: TrainConfig,
                    layout: Optional[Layout] = None):
-    """Validation: eval mode; the loss, the IoU at ``acc_render_size``³
-    (intersection and union pooled over the batch) and the mean rotation
-    error modulo the D2 symmetry, each of the global batch over several
-    ranks (``pred`` is this rank's rows')."""
+    """Validation: eval mode; the loss and, by the prediction's width, the
+    accuracy and the mean rotation error modulo the D2 symmetry, each of
+    the global batch over several ranks (``pred`` is this rank's rows'):
+    12, the IoU at ``acc_render_size``³ (intersection and union pooled
+    over the batch) and the error of ``pred``'s quaternion; 4 (a rotation
+    alone), the error of ``pred`` as the accuracy, negated; any other
+    (the isometric 8), the parameters' MAE, negated, and no error."""
     model = state.model
     layout = layout or Layout()
 
@@ -320,6 +362,16 @@ def make_eval_step(state: TrainState, cfg: TrainConfig,
         imgs = imgs.to(torch.float32)
         pred = params_vector(model(imgs))
         loss = _compute_loss(cfg, pred, imgs, labels, layout)
+        width = pred.shape[-1]
+        if width == 4:
+            ang = data_mean(torch.mean(metrics.angle_error_sym(
+                labels[..., 8:12], pred)), layout)
+            return loss, -ang, ang, pred
+        if width != 12:
+            acc = -data_mean(losses.param_mae(pred, labels[..., :width]),
+                             layout)
+            return loss, acc, torch.zeros((), dtype=imgs.dtype,
+                                          device=imgs.device), pred
         ang = data_mean(torch.mean(metrics.angle_error_sym(
             labels[..., 8:12], pred[..., 8:12])), layout)
         if layout.data_group is None:
@@ -432,7 +484,14 @@ def _train(cfg: TrainConfig, layout: Layout, synthetic_size: Optional[int]):
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)  # the initial weights
-        model = build_model(cfg.model)
+        model = build_model(cfg.model, cfg.image_size,
+                            dtype=MODEL_DTYPES[cfg.dtype])
+    if cfg.pretrained:
+        # any torchvision-layout resnet18 state_dict: a torchvision .pt,
+        # or an encoder exported with export_torchvision_resnet18
+        load_torchvision_resnet18(model, load_state_dict_file(
+            cfg.pretrained))
+        logger.say(f"loaded pretrained encoder from {cfg.pretrained}")
     if cfg.init_weights:
         # full-model warm start from a portable npz; fresh optimizer
         load_weights_npz(cfg.init_weights, model)
@@ -448,7 +507,8 @@ def _train(cfg: TrainConfig, layout: Layout, synthetic_size: Optional[int]):
     state = create_train_state(model, cfg)
     n_params = sum(p.numel() for p in model.parameters())
     logger.say(f"model={cfg.model} params={n_params:,} loss={cfg.loss} "
-               f"device={device} mesh={{'data': {layout.n_data}, "
+               f"dtype={cfg.dtype} device={device} "
+               f"mesh={{'data': {layout.n_data}, "
                f"'grid': {layout.n_grid}}} backend="
                f"{layout.backend or 'none (one rank)'}")
 
@@ -551,110 +611,123 @@ def _train(cfg: TrainConfig, layout: Layout, synthetic_size: Optional[int]):
     best_val = None if (reset_best or not finite_vals) else min(finite_vals)
     meter = Throughput()
 
-    epoch = last_saved_epoch = start_epoch - 1
-    for epoch in range(start_epoch, cfg.max_epochs):
-        # Steps run asynchronously; the loss reaches the host every
-        # log_interval steps, and once per epoch for all steps.
-        losses_dev = []
-        meter.reset()
-        train_gen = _generator(device, cfg.seed, _TRAIN_STREAM, epoch)
-        aug_gen = _generator(device, cfg.seed, _AUG_TRAIN_STREAM, epoch)
-        for step_idx, (imgs, labels) in enumerate(
-                batches(train_gen, aug_gen, cfg.steps_per_epoch, val=False,
-                        epoch=epoch)):
-            loss = train_step(imgs, labels)
-            losses_dev.append(loss)
-            meter.update(int(imgs.shape[0]) * layout.n_data)  # global batch
-            if main and step_idx % cfg.log_interval == 0:
-                loss_val = float(loss)
-                nan_guard.check(loss_val)
-                MetricLogger.progress(
-                    f"Train Epoch: {epoch} Step: {step_idx} "
-                    f"Loss: {loss_val:.6f} ({meter.rate:.0f} imgs/s)")
-        if losses_dev:
-            epoch_losses = torch.stack(losses_dev).cpu().numpy()  # a fence
-            finite = epoch_losses[np.isfinite(epoch_losses)]
-            train_loss = float(finite.mean()) if finite.size else float("nan")
-            if finite.size < epoch_losses.size:
-                logger.say(
-                    f"[nan-guard] {epoch_losses.size - finite.size} "
-                    f"non-finite step losses this epoch")
-        else:
-            train_loss = float("nan")
-        epoch_rate = meter.rate
-        history["loss"].append(train_loss)
+    # the trace, when asked for, is written on every exit from the run
+    with contextlib.ExitStack() as profiling:
+        if cfg.profile_dir:
+            profiling.enter_context(trace(cfg.profile_dir))
 
-        val_losses, val_accs, val_angs = [], [], []
-        val_first = None
-        val_gen = _generator(device, cfg.seed, _VAL_STREAM)
-        val_aug = _generator(device, cfg.seed, _AUG_VAL_STREAM)
-        for imgs, labels in batches(val_gen, val_aug, cfg.val_steps,
-                                    val=True):
-            l, a, ang, pred = eval_step(imgs, labels)
-            if val_first is None:
-                val_first = (imgs, pred)
-            val_losses.append(l)
-            val_accs.append(a)
-            val_angs.append(ang)
-        if val_losses:
-            val_loss = float(torch.stack(val_losses).mean())
-            val_acc = float(torch.stack(val_accs).mean())
-            val_ang = float(torch.stack(val_angs).mean())
-        else:
-            val_loss = val_acc = val_ang = float("nan")
-        history["val_loss"].append(val_loss)
-        history["val_acc"].append(val_acc)
-        ang_hist = history.setdefault("val_angle_sym", [])
-        while len(ang_hist) < len(history["val_loss"]) - 1:
-            ang_hist.append(float("nan"))  # keep every list epoch-aligned
-        ang_hist.append(val_ang)
+        epoch = last_saved_epoch = start_epoch - 1
+        for epoch in range(start_epoch, cfg.max_epochs):
+            # Steps run asynchronously; the loss reaches the host every
+            # log_interval steps, and once per epoch for all steps.
+            losses_dev = []
+            meter.reset()
+            train_gen = _generator(device, cfg.seed, _TRAIN_STREAM, epoch)
+            aug_gen = _generator(device, cfg.seed, _AUG_TRAIN_STREAM, epoch)
+            for step_idx, (imgs, labels) in enumerate(
+                    batches(train_gen, aug_gen, cfg.steps_per_epoch, val=False,
+                            epoch=epoch)):
+                loss = train_step(imgs, labels)
+                losses_dev.append(loss)
+                # the global batch
+                meter.update(int(imgs.shape[0]) * layout.n_data)
+                if main and step_idx % cfg.log_interval == 0:
+                    loss_val = float(loss)
+                    nan_guard.check(loss_val)
+                    MetricLogger.progress(
+                        f"Train Epoch: {epoch} Step: {step_idx} "
+                        f"Loss: {loss_val:.6f} ({meter.rate:.0f} imgs/s)")
+            if losses_dev:
+                epoch_losses = torch.stack(losses_dev).cpu().numpy()  # a fence
+                finite = epoch_losses[np.isfinite(epoch_losses)]
+                train_loss = (float(finite.mean()) if finite.size
+                              else float("nan"))
+                if finite.size < epoch_losses.size:
+                    logger.say(
+                        f"[nan-guard] {epoch_losses.size - finite.size} "
+                        f"non-finite step losses this epoch")
+            else:
+                train_loss = float("nan")
+            epoch_rate = meter.rate
+            history["loss"].append(train_loss)
 
-        if (main and epoch == 0 and cfg.ckpt_dir and cfg.compare_images > 0
-                and val_first is not None):
-            _save_compare_images(cfg, val_first[0], val_first[1],
-                                 os.path.join(cfg.ckpt_dir, "compare"))
+            val_losses, val_accs, val_angs = [], [], []
+            val_first = None
+            val_gen = _generator(device, cfg.seed, _VAL_STREAM)
+            val_aug = _generator(device, cfg.seed, _AUG_VAL_STREAM)
+            for imgs, labels in batches(val_gen, val_aug, cfg.val_steps,
+                                        val=True):
+                l, a, ang, pred = eval_step(imgs, labels)
+                if val_first is None:
+                    val_first = (imgs, pred)
+                val_losses.append(l)
+                val_accs.append(a)
+                val_angs.append(ang)
+            if val_losses:
+                val_loss = float(torch.stack(val_losses).mean())
+                val_acc = float(torch.stack(val_accs).mean())
+                val_ang = float(torch.stack(val_angs).mean())
+            else:
+                val_loss = val_acc = val_ang = float("nan")
+            history["val_loss"].append(val_loss)
+            history["val_acc"].append(val_acc)
+            ang_hist = history.setdefault("val_angle_sym", [])
+            while len(ang_hist) < len(history["val_loss"]) - 1:
+                ang_hist.append(float("nan"))  # keep every list epoch-aligned
+            ang_hist.append(val_ang)
 
-        if cfg.lr_schedule == "step2019":
-            new_lr = step_schedule_2019(epoch)
-        else:
-            new_lr = scheduler.step(val_loss)
-        if abs(new_lr - get_lr(state)) > 1e-6 * max(new_lr, 1e-12):
-            logger.say(f"Reducing learning rate to {new_lr:g}")
-            set_lr(state, new_lr)
+            # (an 8- or 4-parameter prediction is no shape to render)
+            if (main and epoch == 0 and cfg.ckpt_dir
+                    and cfg.compare_images > 0 and val_first is not None
+                    and val_first[1].shape[-1] == 12):
+                _save_compare_images(cfg, val_first[0], val_first[1],
+                                     os.path.join(cfg.ckpt_dir, "compare"))
 
-        # a non-finite val_loss neither becomes the best nor poisons it
-        if cfg.ckpt_dir and np.isfinite(val_loss) and (
-                best_val is None or val_loss < best_val):
-            best_val = val_loss
-            if main:
-                save_checkpoint(ckpt_path, state, history, epoch, cfg,
-                                scheduler)
-            saved = " [saved]"
-        else:
-            saved = ""
-        last_every = max(int(cfg.save_last_interval), 1)
-        if cfg.ckpt_dir and cfg.save_last and (
-                epoch % last_every == last_every - 1):
-            if main:
-                save_checkpoint(last_path, state, history, epoch, cfg,
-                                scheduler)
-            last_saved_epoch = epoch
-        logger.say(
-            f"Epoch {epoch}: loss {train_loss:.6f}  val_loss {val_loss:.6f} "
-            f"val_acc {val_acc:.6f}  {epoch_rate:.0f} imgs/s{saved}")
-        # each rank's kernel launches since its counters were last reset,
-        # and its peak device memory
-        ranks = gather_objects({
-            "launches": launch_counts(),
-            "max_memory_mb": (torch.cuda.max_memory_allocated(device) / 2**20
-                              if device.type == "cuda" else None)}, layout)
-        logger.log(epoch=epoch, loss=train_loss, val_loss=val_loss,
-                   val_acc=val_acc, val_angle_sym=val_ang,
-                   lr=get_lr(state), imgs_per_sec=epoch_rate, ranks=ranks)
+            if cfg.lr_schedule == "step2019":
+                new_lr = step_schedule_2019(epoch)
+            else:
+                new_lr = scheduler.step(val_loss)
+            if abs(new_lr - get_lr(state)) > 1e-6 * max(new_lr, 1e-12):
+                logger.say(f"Reducing learning rate to {new_lr:g}")
+                set_lr(state, new_lr)
 
-    # 'last' reflects the final state on any exit from the loop
-    if main and cfg.ckpt_dir and cfg.save_last and epoch > last_saved_epoch:
-        save_checkpoint(last_path, state, history, epoch, cfg, scheduler)
+            # a non-finite val_loss neither becomes the best nor poisons it
+            if cfg.ckpt_dir and np.isfinite(val_loss) and (
+                    best_val is None or val_loss < best_val):
+                best_val = val_loss
+                if main:
+                    save_checkpoint(ckpt_path, state, history, epoch, cfg,
+                                    scheduler)
+                saved = " [saved]"
+            else:
+                saved = ""
+            last_every = max(int(cfg.save_last_interval), 1)
+            if cfg.ckpt_dir and cfg.save_last and (
+                    epoch % last_every == last_every - 1):
+                if main:
+                    save_checkpoint(last_path, state, history, epoch, cfg,
+                                    scheduler)
+                last_saved_epoch = epoch
+            logger.say(
+                f"Epoch {epoch}: loss {train_loss:.6f}  "
+                f"val_loss {val_loss:.6f} val_acc {val_acc:.6f}  "
+                f"{epoch_rate:.0f} imgs/s{saved}")
+            # each rank's kernel launches since its counters were last reset,
+            # and its peak device memory
+            ranks = gather_objects({
+                "launches": launch_counts(),
+                "max_memory_mb": (
+                    torch.cuda.max_memory_allocated(device) / 2**20
+                    if device.type == "cuda" else None)}, layout)
+            logger.log(epoch=epoch, loss=train_loss, val_loss=val_loss,
+                       val_acc=val_acc, val_angle_sym=val_ang,
+                       lr=get_lr(state), imgs_per_sec=epoch_rate, ranks=ranks)
+
+        # 'last' reflects the final state on any exit from the loop
+        if (main and cfg.ckpt_dir and cfg.save_last
+                and epoch > last_saved_epoch):
+            save_checkpoint(last_path, state, history, epoch, cfg,
+                            scheduler)
     barrier(layout)  # every rank returns once the checkpoints are written
     return state, history
 

@@ -5,10 +5,9 @@ Counterpart of ``sqtpu/utils/config.py:17-176`` and ``parse_cli``, of
 ``sqtpu/predict.py`` and ``GenerateConfig`` in ``sqtpu/generate.py``.
 ``device`` replaces the JAX configs' ``platform``: entry points run on
 ``cuda`` unless the caller asks for ``cpu``, and a missing card is an
-error, never a silent CPU run. The JAX configs' options that this port
-does not run yet are kept so that setting one raises (:func:`check_slice`)
-instead of being ignored. ``FitConfig`` is ``sqtpu/utils/config.py:
-179-192``'s, for ``python -m sqtpu_torch.fit``.
+error, never a silent CPU run. Every option of the JAX configs runs.
+``FitConfig`` is ``sqtpu/utils/config.py:179-192``'s, for ``python -m
+sqtpu_torch.fit``.
 """
 
 from __future__ import annotations
@@ -32,7 +31,7 @@ class TrainConfig:
 
     # model / loss
     model: str = "resnet_sq"
-    loss: str = "implicit"            # see PORTED_LOSSES
+    loss: str = "implicit"            # see training/loop.py _compute_loss
     aux_weight: float = 0.05
     gauge_weight: float = 1.0
     geo_weight: float = 1.0
@@ -77,7 +76,7 @@ class TrainConfig:
     augment_randomize: bool = False
 
     # precision / parallelism
-    dtype: str = "float32"
+    dtype: str = "float32"            # float32 | bfloat16 (flax's dtype)
     remat: bool = False
     n_grid: int = 1
     donate: bool = True               # accepted, ignored (no buffer donation)
@@ -99,7 +98,7 @@ class TrainConfig:
     log_interval: int = 10
     compare_images: int = 4           # epoch-0 true/pred BMP pairs
     nan_policy: str = "warn"          # warn | skip
-    profile_dir: str = ""
+    profile_dir: str = ""             # torch.profiler trace of the run
 
     # kernels
     use_pallas: bool = True           # the hand-written kernels on the card
@@ -195,7 +194,7 @@ class GenerateConfig:
     ignored."""
     n: int = 1000
     out: str = "data/generated"
-    iso: bool = False                 # fixed view (Slice F): raises
+    iso: bool = False                 # the 2019 isometric view
     image_size: int = 256
     seed: int = 0
     batch_size: int = 128
@@ -224,24 +223,16 @@ class FitConfig:
 
 
 def check_slice(cfg) -> None:
-    """Raise ``NotImplementedError`` for an option this port does not run
-    yet, naming the ROADMAP.md slice that ports it; for a training config,
-    raise ``ValueError`` when the ranks cannot be laid out
-    (:func:`check_layout`) over the launcher's ``WORLD_SIZE`` (1 without
-    it)."""
-    from sqtpu_torch.models import build_model, MODEL_REGISTRY
+    """Raise ``KeyError`` for a model name outside the registry
+    (``classical`` is an evaluation mode, not a model to train); for a
+    training config, raise ``ValueError`` when the ranks cannot be laid
+    out (:func:`check_layout`) over the launcher's ``WORLD_SIZE`` (1
+    without it)."""
+    from sqtpu_torch.models import MODEL_REGISTRY
 
     if cfg.model not in MODEL_REGISTRY and not (
             cfg.model == "classical" and not isinstance(cfg, TrainConfig)):
-        build_model(cfg.model)  # raises, naming the slice
-    later = []
-    if getattr(cfg, "iso", False):
-        later.append("iso: Slice F (the 2019 isometric models)")
-    if isinstance(cfg, TrainConfig):
-        later += _train_options_later(cfg)
-    if later:
-        raise NotImplementedError(
-            "not ported yet (see ROADMAP.md): " + "; ".join(later))
+        raise KeyError(cfg.model)
     if isinstance(cfg, TrainConfig):
         from sqtpu_torch.parallel.mesh import launcher_world_size
 
@@ -265,31 +256,6 @@ def check_layout(cfg: TrainConfig, world_size: int) -> None:
     if cfg.batch_size % n_data:
         raise ValueError(f"batch_size {cfg.batch_size} must divide the "
                          f"data axis of {n_data} ranks")
-
-
-# The losses this port runs (training/loop.py _compute_loss).
-PORTED_LOSSES = (
-    "implicit", "explicit", "explicit_sym", "explicit_gauge", "param_mse",
-    "supervised", "supervised_sym", "supervised_geo", "supervised_gauge",
-    "implicit_sym", "implicit_gauge", "quaternion", "quaternion_sym",
-    "leastsquares")
-
-# The JAX package's other losses, and the ROADMAP.md slice that ports each.
-_LOSS_SLICE = {"keras_chamfer": "Slice F (the Keras losses)"}
-
-
-def _train_options_later(cfg: "TrainConfig") -> list:
-    later = []
-    if cfg.loss not in PORTED_LOSSES:
-        later.append(f"loss={cfg.loss!r}: "
-                     + _LOSS_SLICE.get(cfg.loss, "no such loss"))
-    if cfg.pretrained:
-        later.append("pretrained: Slice F (torchvision encoder weights)")
-    if cfg.dtype != "float32":
-        later.append(f"dtype={cfg.dtype!r}: Slice F")
-    if cfg.profile_dir:
-        later.append("profile_dir: Slice F (utils/profiling.py)")
-    return later
 
 
 def resolve_device(name: str) -> torch.device:
@@ -324,3 +290,7 @@ def parse_cli(cls, argv: Optional[list] = None):
             parser.add_argument(arg, type=type(f.default), default=f.default)
     ns = parser.parse_args(argv)
     return cls(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(cls)})
+
+
+# TrainConfig.dtype -> the models' compute dtype (None: float32 throughout)
+MODEL_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}

@@ -221,9 +221,11 @@ def test_generate_native_backend_and_refusals(tmp_path):
                                       image_size=32, backend="native",
                                       device="cpu"))
     assert len(os.listdir(tmp_path / "n")) == 3
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        tgenerate.generate(GenerateConfig(n=1, out=str(tmp_path / "i"),
-                                          iso=True, device="cpu"))
+    # iso runs since Slice F: one image of the fixed view and its row
+    tgenerate.generate(GenerateConfig(n=1, out=str(tmp_path / "i"),
+                                      image_size=32, iso=True, device="cpu"))
+    assert sorted(os.listdir(tmp_path / "i")) == ["000000.bmp",
+                                                  "data_labels.csv"]
     with pytest.raises(ValueError, match="backend"):
         tgenerate.generate(GenerateConfig(n=1, out=str(tmp_path / "b"),
                                           backend="tpu", device="cpu"))

@@ -56,11 +56,20 @@ def test_eval_random_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("option", [
     {"iso": True}, {"model": "resnet_sq6d"}])
-def test_eval_options_outside_the_slice_raise(option, tmp_path):
-    cfg = EvalConfig(ckpt_dir=WEIGHTS, n=2, batch_size=2, device="cpu",
-                     out_dir=str(tmp_path), **option)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eval_random(cfg)
+def test_eval_options_of_slice_f_run(option, tmp_path):
+    """Options the slice gate refused until Slice F: the isometric view
+    (c4's weights on it) and the 6D model (random weights, seeded):
+    ``eval_random`` n=2 each."""
+    ckpt = WEIGHTS if "iso" in option else str(tmp_path / "none")
+    cfg = EvalConfig(ckpt_dir=ckpt, n=2, batch_size=2, acc_render_size=16,
+                     device="cpu", out_dir=str(tmp_path), **option)
+    res = eval_random(cfg)
+    assert np.isfinite(res["full_iou_mean"])
+    with np.load(tmp_path / "accs.npz") as d:
+        q = d["true_params"][:, 8:]
+    if "iso" in option:
+        np.testing.assert_allclose(q, np.broadcast_to(
+            np.array([1, 1, 1, 0]) / np.sqrt(3.0), q.shape), atol=1e-7)
 
 
 @pytest.mark.parametrize("option", [
@@ -77,35 +86,56 @@ def test_options_of_slice_c_run(option, tmp_path):
     assert len(pairs) == 2 * cfg.save_pairs
 
 
-def test_serve_options_outside_the_slice_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SQServer(ServeConfig(ckpt_dir=WEIGHTS, model="resnet_sq6d",
-                             device="cpu"))
+def test_serve_model_of_slice_f_runs(tmp_path_factory):
+    """The 6D model, refused until Slice F, served (random weights)."""
+    sock = str(tmp_path_factory.mktemp("sq") / "s.sock")
+    server = SQServer(ServeConfig(ckpt_dir=str(tmp_path_factory.mktemp(
+        "none")), model="resnet_sq6d", socket=sock, batch_size=1,
+        image_size=32, device="cpu"))
+    acceptor = threading.Thread(target=server.serve_forever, daemon=True)
+    acceptor.start()
+    assert server.ready.wait(30)
+    with ServeClient(sock, timeout_s=30) as c:
+        resp = c.predict(np.full((32, 32), 100, np.uint8))
+        assert np.linalg.norm(resp["params"][8:]) == pytest.approx(1.0,
+                                                                   abs=1e-5)
+        c.shutdown()
+    acceptor.join(timeout=5)
+    assert not acceptor.is_alive()
 
 
-@pytest.mark.parametrize("entry,slice_", [
-    ("predict_model", "Slice F"), ("generate_iso", "Slice F"),
-    ("single_model", "Slice F")])
-def test_bulk_options_outside_the_slice_raise(entry, slice_, tmp_path):
-    """What Slice F ports still raises from the bulk entry points."""
+@pytest.mark.parametrize("entry", ["predict_model", "generate_iso",
+                                   "single_model"])
+def test_bulk_options_of_slice_f_run(entry, tmp_path):
+    """What the bulk entry points refused until Slice F: predict and
+    evaluate single with the 6D model (random weights), generate with
+    the isometric view."""
     from sqtpu_torch.evaluate import eval_single
     from sqtpu_torch.generate import generate
     from sqtpu_torch.predict import predict_files
     from sqtpu_torch.utils.config import GenerateConfig, PredictConfig
 
     bmp = tmp_path / "x.bmp"
-    tbmp.write_bmp(bmp, np.zeros((32, 32), np.uint8))
-    with pytest.raises(NotImplementedError, match=slice_):
-        if entry == "predict_model":
-            predict_files(PredictConfig(ckpt_dir=WEIGHTS,
-                                        model="resnet_sq6d", device="cpu"),
-                          [str(bmp)])
-        elif entry == "generate_iso":
-            generate(GenerateConfig(n=1, out=str(tmp_path), iso=True,
-                                    device="cpu"))
-        else:
-            eval_single(EvalConfig(model="resnet_sq6d", device="cpu"),
-                        str(bmp))
+    tbmp.write_bmp(bmp, np.full((32, 32), 100, np.uint8))
+    none = str(tmp_path / "none")
+    if entry == "predict_model":
+        got = predict_files(PredictConfig(ckpt_dir=none, model="resnet_sq6d",
+                                          image_size=32, device="cpu"),
+                            [str(bmp)])
+    elif entry == "generate_iso":
+        generate(GenerateConfig(n=2, out=str(tmp_path / "gen"), iso=True,
+                                image_size=32, device="cpu"))
+        got = tlabels.parse_csv_torch(str(tmp_path / "gen" /
+                                          "data_labels.csv"))
+        np.testing.assert_allclose(got[:, 8:], np.broadcast_to(
+            np.array([1, 1, 1, 0]) / np.sqrt(3.0), (2, 4)), atol=1e-6)
+    else:
+        got = eval_single(EvalConfig(ckpt_dir=none, model="resnet_sq6d",
+                                     image_size=32, device="cpu"), str(bmp))
+    got = np.asarray(got).reshape(-1, 12)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(np.linalg.norm(got[:, 8:], axis=-1), 1.0,
+                               atol=1e-5)
 
 
 def test_cuda_without_a_card_is_an_error():

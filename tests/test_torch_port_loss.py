@@ -340,8 +340,12 @@ def test_make_batch_renders_its_labels(renderer):
 
 
 def test_make_batch_options_outside_the_slice():
+    """``iso`` runs since Slice F (the fixed isometric view); an unknown
+    renderer raises."""
     gen = torch.Generator()
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        make_batch(gen, 2, 32, iso=True)
+    imgs, labels = make_batch(gen, 2, 32, iso=True)
+    assert imgs.shape == (2, 32, 32, 1)
+    torch.testing.assert_close(labels[:, 8:], torch.tensor(
+        [[1.0, 1.0, 1.0, 0.0]] * 2) / 3.0 ** 0.5)
     with pytest.raises(ValueError):
         make_batch(gen, 2, 32, renderer="scanner")

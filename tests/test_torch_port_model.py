@@ -149,16 +149,20 @@ def test_conversion_raises_on_mismatch(fault):
 
 
 def test_build_model_names_later_slices():
-    """The models Slice F ports raise, naming it; ``refine_sq`` builds
-    since Slice D; any other name is the JAX registry's KeyError
-    (``classical`` among them: an evaluation mode, not a model)."""
-    from sqtpu_torch.models import IterativeSQ
+    """Every name of the JAX package's registry builds since Slice F (the
+    flattening models for the given image size); any other name is the
+    JAX registry's KeyError (``classical`` among them: an evaluation
+    mode, not a model)."""
+    from sqtpu.models import MODEL_REGISTRY as JAX_REGISTRY
+    from sqtpu_torch.models import IterativeSQ, KerasIsoNet
 
     assert isinstance(build_model("resnet_sq"), ResNetSQ)
     assert isinstance(build_model("refine_sq", n_refine=1, n_sweep=8),
                       IterativeSQ)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Slice F"):
-        build_model("resnet_sq6d")
+    for name in JAX_REGISTRY:
+        assert build_model(name, 64) is not None, name
+    assert build_model("keras_iso", 64).out.in_features == 2 * 2 * 256
+    assert isinstance(build_model("keras_iso"), KerasIsoNet)
     for name in ("no_such_model", "classical"):
         with pytest.raises(KeyError):
             build_model(name)

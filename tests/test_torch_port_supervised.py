@@ -222,8 +222,14 @@ def test_elong_weights_match_jax(branch_batch):
 
 
 def test_unported_loss_raises_in_the_branch():
-    """The loss Slice F ports (``leastsquares`` runs since Slice D)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tloop._compute_loss(TrainConfig(loss="keras_chamfer"),
+    """Every loss of the JAX package runs since Slice F (``keras_chamfer``:
+    ``test_torch_port_keras.py``); a name it does not know raises its
+    ValueError."""
+    with pytest.raises(ValueError, match="unknown loss"):
+        tloop._compute_loss(TrainConfig(loss="no_such_loss"),
                             torch.zeros(2, 12), torch.zeros(2, 8, 8, 1),
                             torch.zeros(2, 12))
+    with pytest.raises(ValueError, match="unknown loss"):
+        jloop._compute_loss(jconfig.TrainConfig(loss="no_such_loss"),
+                            jnp.zeros((2, 12)), jnp.zeros((2, 8, 8, 1)),
+                            jnp.zeros((2, 12)))

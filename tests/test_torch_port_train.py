@@ -231,21 +231,49 @@ def test_train_config_has_the_jax_fields_and_flags():
     assert t.device == "cpu"
 
 
-@pytest.mark.parametrize("option,slice_", [
-    ({"loss": "keras_chamfer"}, "Slice F"),
-    ({"pretrained": "r18.pt"}, "Slice F"),
-    ({"model": "resnet_sq6d"}, "Slice F"),
-    ({"model": "classical"}, "classical"),
-    ({"dtype": "bfloat16"}, "Slice F"), ({"profile_dir": "prof"}, "Slice F"),
-    ({"iso": True}, "Slice F")])
-def test_options_outside_the_slice_raise(option, slice_, tmp_path):
-    """What Slice F ports raises, naming it; ``classical`` is an
-    evaluation mode, not a model, and raises the JAX package's KeyError
-    (``sqtpu.models.build_model``'s registry lookup)."""
-    cfg = TrainConfig(ckpt_dir=str(tmp_path), **{**SMALL, **option})
-    error = KeyError if slice_ == "classical" else NotImplementedError
-    with pytest.raises(error, match=slice_):
+def test_options_outside_the_slice_raise(tmp_path):
+    """``classical`` is an evaluation mode, not a model to train: the JAX
+    package's KeyError (``sqtpu.models.build_model``'s registry lookup).
+    Every other option of the JAX package's TrainConfig runs since Slice
+    F (:func:`test_options_of_slice_f_run`)."""
+    cfg = TrainConfig(ckpt_dir=str(tmp_path), model="classical", **SMALL)
+    with pytest.raises(KeyError, match="classical"):
         train(cfg)
+
+
+@pytest.fixture(scope="module")
+def encoder_npz(tmp_path_factory):
+    """c4's encoder in torchvision's layout."""
+    from sqtpu_torch.models import export_torchvision_resnet18
+
+    path = str(tmp_path_factory.mktemp("enc") / "encoder.npz")
+    np.savez(path, **export_torchvision_resnet18(load_weights_npz(
+        os.path.join(os.path.dirname(SSL), "resnet_sq_c4_fp16.npz"),
+        ResNetSQ())))
+    return path
+
+
+@pytest.mark.parametrize("option", [
+    {"loss": "keras_chamfer"}, {"pretrained": "encoder"},
+    {"model": "resnet_sq6d"}, {"dtype": "bfloat16"},
+    {"profile_dir": "prof"}, {"iso": True}])
+def test_options_of_slice_f_run(option, encoder_npz, tmp_path):
+    """Options the slice gate refused until Slice F: one epoch of one step
+    on the CPU each."""
+    if "pretrained" in option:
+        option = {"pretrained": encoder_npz}
+    if "profile_dir" in option:
+        option = {"profile_dir": str(tmp_path / "prof")}
+    cfg = TrainConfig(max_epochs=1, steps_per_epoch=1, val_steps=1,
+                      compare_images=0, ckpt_dir=str(tmp_path),
+                      **{**SMALL, "loss": "supervised", **option})
+    state, hist = train(cfg)
+    assert np.isfinite(hist["loss"][0]) and np.isfinite(hist["val_loss"][0])
+    if "profile_dir" in option:
+        assert any(f.endswith(".pt.trace.json")
+                   for f in os.listdir(option["profile_dir"]))
+    if "dtype" in option:
+        assert state.model.encoder.conv1.compute_dtype == torch.bfloat16
 
 
 @pytest.fixture(scope="module")

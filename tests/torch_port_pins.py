@@ -1,5 +1,6 @@
-"""The JAX package's numbers that ``chip_smoke.py`` phases 24-28 hold the
-port to, computed on the CPU in float32.
+"""The JAX package's numbers that ``chip_smoke.py`` phases 24-29 and
+``tests/test_torch_port_gpu.py`` hold the port to, computed on the CPU in
+float32 (bfloat16 for phase 29).
 
 Not a test module (pytest collects ``test_*.py`` only): a script of the
 test suite, run from the repository root::
@@ -8,6 +9,8 @@ test suite, run from the repository root::
     python tests/torch_port_pins.py gd          # phase 25
     python tests/torch_port_pins.py corrector   # phase 26
     python tests/torch_port_pins.py fit         # phase 28
+    python tests/torch_port_pins.py bf16        # phase 29
+    python tests/torch_port_pins.py bf16_step   # phase 29, card tests
 
 Each prints one JSON line per result. The truths are the 1000 recorded in
 ``runs/eval_c4c3/accs.npz``; their images are rendered by the JAX
@@ -16,7 +19,14 @@ bisections, quantized), predicted by the flax model on the CPU and scored
 with ``iou_full`` at 128³, as ``sqtpu.evaluate`` does. ``fit`` runs the
 JAX package's fitting functions on the truth and the initial parameters
 that ``python -m sqtpu_torch.fit`` draws (the port's generator, on the
-CPU), so both packages fit the same shape from the same start.
+CPU), so both packages fit the same shape from the same start. ``bf16``
+is the ssl artifact's implicit loss (64³, τ 1.5, sharpness 260) of the
+bfloat16 ResNetSQ's eval-mode predictions on the first 16 truths rendered
+at the training setting (48 slabs, 12 bisections), phase 9's number with
+the model's ``dtype`` bfloat16. ``bf16_step`` is the bfloat16-against-
+float32 gaps of one train step in both packages on the same inputs
+(:func:`bf16_step_gaps`): phase 29's step and
+``tests/test_torch_port_gpu.py::test_bf16_step_on_card``'s.
 """
 
 from __future__ import annotations
@@ -199,6 +209,177 @@ def pin_fit() -> None:
              fit=np.asarray(p_fit).tolist())
 
 
+def pin_bf16() -> None:
+    """Phase 29: the ssl artifact's validation loss with the bfloat16
+    model (flax's ``dtype``)."""
+    from sqtpu.models import ResNetSQ
+    from sqtpu.ops import losses
+
+    t0 = time.time()
+    p = jnp.asarray(truths(16))
+    imgs = render_hard_auto(p, 256, n_sweep=48, n_bisect=12, quantize=True)
+    model = ResNetSQ(dtype=jnp.bfloat16)
+    template = jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                              jnp.zeros((1, 32, 32, 1), jnp.float32))
+    variables = load_weights_npz(
+        os.path.join(ROOT, "artifacts", "resnet_sq_ssl_fp16.npz"),
+        {"params": template["params"],
+         "batch_stats": template["batch_stats"]})
+    pred = params_vector(model.apply(variables, imgs[..., None],
+                                     train=False))
+    emit("ssl_bf16_val_loss", t0, loss=float(losses.implicit_loss(
+        imgs, pred, 64, 1.5, 260.0)), pred_dtype=str(pred.dtype))
+
+
+def _nest(flat: dict) -> dict:
+    """Flat flax names (``params/encoder/conv1/kernel``) -> variables."""
+    out = {}
+    for key, value in flat.items():
+        *path, leaf = key.split("/")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = jnp.asarray(value)
+    return out
+
+
+def _step_loss_fn(model, variables, imgs, labels, dtype: str):
+    """The JAX package's train step's loss (the plain implicit loss at
+    64³, τ 1.5, sharpness 260) as a function of the parameters."""
+    from sqtpu.training import loop as jloop
+    from sqtpu.utils import config as jconfig
+
+    cfg = jconfig.TrainConfig(batch_size=int(imgs.shape[0]),
+                              use_pallas=False, dtype=dtype)
+
+    def loss_fn(params):
+        out, _ = model.apply({"params": params,
+                              "batch_stats": variables["batch_stats"]},
+                             imgs, train=True, mutable=["batch_stats"])
+        return jloop._compute_loss(cfg, params_vector(out), imgs, labels,
+                                   None)
+    return loss_fn
+
+
+# The bf16 gaps' own spread: one statistic of one step moves by several
+# times under a change far below bf16's resolution (2^-8), such as 4
+# pixels one gray level apart; each run after the first scales every
+# weight by 1 + SPREAD_SCALE·N(0, 1).
+SPREAD_RUNS, SPREAD_SCALE, SPREAD_SEED = 16, 2.0 ** -18, 0
+
+
+def jax_gap_spread(models: dict, variables: dict, imgs, labels,
+                   runs: int = SPREAD_RUNS) -> dict:
+    """Each statistic of ``bf16_gaps`` over ``runs`` runs of the JAX
+    package's step, the first on ``variables`` as they are, as
+    ``{statistic: [value of each run]}``."""
+    from test_torch_port_gpu import bf16_gaps
+
+    rng = np.random.default_rng(SPREAD_SEED)
+    steps = {d: jax.jit(jax.value_and_grad(
+        _step_loss_fn(m, variables, imgs, labels, d)))
+        for d, m in models.items()}
+    spread = {}
+    for run in range(runs):
+        params = variables["params"] if run == 0 else jax.tree_util.tree_map(
+            lambda w: jnp.asarray(np.asarray(w) * (
+                1 + SPREAD_SCALE * rng.standard_normal(np.shape(w))),
+                jnp.float32), variables["params"])
+        results = {d: step(params) for d, step in steps.items()}
+        gaps = bf16_gaps({d: (float(loss), _flat(grads))
+                          for d, (loss, grads) in results.items()})
+        for key, value in gaps.items():
+            spread.setdefault(key, []).append(value)
+    return spread
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _flat(v, f"{prefix}{k}/").items()}
+    return {prefix[:-1]: np.asarray(tree, np.float64)}
+
+
+def _port_step(model, imgs: np.ndarray, labels: np.ndarray, dtype: str):
+    """The port's train step on the CPU: its loss and gradients."""
+    import torch
+
+    from sqtpu_torch.training.loop import make_train_step
+    from sqtpu_torch.training.state import create_train_state
+    from sqtpu_torch.utils.config import TrainConfig
+
+    cfg = TrainConfig(batch_size=int(imgs.shape[0]), dtype=dtype,
+                      device="cpu")
+    loss = make_train_step(create_train_state(model, cfg), cfg)(
+        torch.from_numpy(imgs), torch.from_numpy(labels))
+    return float(loss), {n: p.grad.double().numpy()
+                         for n, p in model.named_parameters()}
+
+
+def bf16_step_gaps(case: str, runs: int = SPREAD_RUNS) -> dict:
+    """The bf16-against-fp32 gaps of one ssl train step
+    (``test_torch_port_gpu.bf16_gaps``): the JAX package's over ``runs``
+    runs (:func:`jax_gap_spread`; ``jax`` is the first, ``jax_max`` each
+    statistic's largest) and the port's on the same inputs, both on the
+    CPU. ``case`` is ``ssl``, phase 29's step (the ssl artifact, the first
+    8 truths at 256²), or ``random``, ``test_bf16_step_on_card``'s
+    (ResNetSQ with ``numpy_weights(BF16_STEP_SEED)``, carried into flax,
+    on 8 shapes of ``_params`` from the same seed at 128²); each rendered
+    by the JAX package's plain renderer at the training setting."""
+    from sqtpu.models import ResNetSQ
+    from sqtpu.ops import render as jrender
+    from sqtpu_torch.models import ResNetSQ as PortResNetSQ
+    from sqtpu_torch.utils.checkpoint import (
+        flax_from_state_dict, load_weights_npz as port_load_weights,
+    )
+    from sqtpu_torch.utils.config import MODEL_DTYPES
+    from test_torch_port_gpu import (
+        BF16_STEP_SEED, _params, bf16_gaps, numpy_weights,
+    )
+
+    if case == "ssl":
+        p, size = truths(8), 256
+        weights = os.path.join(ROOT, "artifacts", "resnet_sq_ssl_fp16.npz")
+    else:
+        p, size = _params(np.random.default_rng(BF16_STEP_SEED), 8), 128
+        drawn = numpy_weights(PortResNetSQ(), BF16_STEP_SEED).state_dict()
+        weights = None
+    imgs = np.asarray(jrender.render_depth_hard_batch(
+        jnp.asarray(p), size, n_bisect=12, quantize=True,
+        n_sweep=48))[..., None]
+    models, port_runs = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        models[dtype] = ResNetSQ(
+            dtype=jnp.bfloat16 if dtype == "bfloat16" else None)
+        port = PortResNetSQ(dtype=MODEL_DTYPES[dtype])
+        if weights:
+            template = jax.eval_shape(models[dtype].init,
+                                      jax.random.PRNGKey(0),
+                                      jnp.zeros((1, 32, 32, 1)))
+            variables = load_weights_npz(weights, {
+                "params": template["params"],
+                "batch_stats": template["batch_stats"]})
+            port_load_weights(weights, port)
+        else:
+            variables = _nest(flax_from_state_dict(drawn))
+            port.load_state_dict(drawn)
+        port_runs[dtype] = _port_step(port, imgs, p, dtype)
+    spread = jax_gap_spread(models, variables, jnp.asarray(imgs),
+                            jnp.asarray(p), runs)
+    return {"jax": {k: v[0] for k, v in spread.items()},
+            "jax_max": {k: max(v) for k, v in spread.items()},
+            "jax_spread": spread, "port_cpu": bf16_gaps(port_runs)}
+
+
+def pin_bf16_step() -> None:
+    """The JAX package's own bf16-against-fp32 step gaps that the card's
+    are held to: phase 29's (``ssl``) and ``test_bf16_step_on_card``'s
+    (``random``), the port's on the CPU beside them."""
+    for case in ("ssl", "random"):
+        t0 = time.time()
+        emit(f"{case}_bf16_step_gaps", t0, **bf16_step_gaps(case))
+
+
 if __name__ == "__main__":
     what = sys.argv[1]
     if what == "lm":
@@ -209,5 +390,9 @@ if __name__ == "__main__":
         pin_corrector(int(sys.argv[2]) if len(sys.argv) > 2 else 1000)
     elif what == "fit":
         pin_fit()
+    elif what == "bf16":
+        pin_bf16()
+    elif what == "bf16_step":
+        pin_bf16_step()
     else:
         raise SystemExit(f"unknown pin {what!r}")
