@@ -85,7 +85,21 @@ user calls:
   ``supervised_sym``, stage B ``implicit_sym`` through K1/K2),
   ``generic_sq`` + ``quaternion_sym`` and ``keras_rot`` +
   ``keras_chamfer``; c4's encoder exported in torchvision's layout and
-  trained from with ``--pretrained`` (c4's to the bit at step 0).
+  trained from with ``--pretrained`` (c4's to the bit at step 0);
+* Slice F2 (phases 34-36): ``sqtpu_torch.viz``'s numbers on the card in
+  float32 against the CPU's float64: ``slerp_sweep`` for the explicit
+  (K5, full sweep), implicit (K1, full sweep) and quaternion losses at
+  n = 200, the turntable's 8 views at 128² (K3, one batch, unquantized),
+  and the fit frames (K4 at B = 1 over the full lattice: the JAX test's
+  Adam fit, with its margins; K1/K2 on the K3 image of the same truth),
+  each kernel at these settings against its plain version, and every plot
+  where matplotlib imports; ``python -m
+  sqtpu_torch.tools.roofline_explicit`` (its K4 against phase 11's,
+  within its bound); ``python -m sqtpu_torch.tools.serve_bench`` (8
+  clients x 25 requests, the first answers against the in-process
+  model); the 2019-landscape probe's descent fed the JAX tool's truths and
+  starts (``tests/torch_port_probe_pins.json``), and README's finding at
+  1.57 rad.
 
 One flushed progress line per phase, with the elapsed seconds; no failure
 is caught. The last lines are one JSON object with the train steps'
@@ -140,20 +154,9 @@ EVAL_SWEEP, EVAL_BISECT = 64, 16
 TRAIN_SWEEP, TRAIN_BISECT = 48, 12
 TIMING_RUNS = 20
 
-# Card peaks for the bound (NVIDIA H100 SXM data sheet, dense, 700 W):
-PEAK_FP32_OPS = 67e12      # float32 outside the tensor cores, op/s
-PEAK_BYTES = 3.35e12       # HBM3, bytes/s
-# fp32 operations of one inside test of the hard renderer, each logf and
-# expf counted as one: 3 FMA for u, v, w (6), 3 FMA for the squares plus
-# FLT_MIN (6), 4 logf, 4 products by the exponents, 4 expf, 2 adds for
-# A + B + FLT_MIN, 1 add for E + C, 1 compare = 28; plus 2 for the step
-# (z = z_hi - j*step, or mid = 0.5*(lo + hi)). The bound counts the tests
-# these inputs need: those the kernel makes, which skip the slabs its
-# ray-box interval rules out (no test there can be inside). The tests of
-# the full sweep from z_hi (the TPU kernel's algorithm) give a second
-# figure, `bound_ms_full_sweep`, the yardstick kept from version to
-# version.
-OPS_PER_TEST = 30
+# The card's peaks and each kernel's operations per test or point, for
+# every bound below, are in sqtpu_torch/ops/kernels/bounds.py (one source
+# with the roofline tool).
 
 # The implicit loss on the training path: TrainConfig's defaults and the
 # ssl1 recipe (runs/queue_r13.sh:149-157): batch 512, 64³, τ 1.5, sharp 260.
@@ -167,26 +170,6 @@ LOSS_B, LOSS_N, TAU, SHARP = 512, 64, 1.5, 260.0
 VALUE_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 5e-3, 1e-6
 IMG_GRAD_RTOL = 1e-4
-# fp32 operations per in-window (x, y, z) point, each logf/expf counted as
-# one, read off the first port's sqtpu_torch/csrc/implicit.cu, the
-# TPU kernels' chain: the field chain 49 (21 for u, v, w; 9 squares and
-# guards; 9 for the three powers; 10 for G, E, H, F); K1 adds 10 (sigmoid
-# 6, S, exp(-τS) 2, Tacc), K2 adds 17 (sigmoid 6, S, T_j 2, V, W 2, gF 5)
-# and the gradient chain's 108. The window's points at these counts give
-# `bound_ms_window`, the yardstick kept from version to version.
-OPS_K1 = 59
-OPS_K2 = 174
-# The redesigned K1/K2 make, per point they evaluate after the exact-zero
-# cull, 44 and 115 operations read off sqtpu_torch/csrc/implicit.cu and
-# sq_field.cuh: the field chain of 34 (u, v, w = u0 + c·z, 6; squares and
-# guards 9; the three powers by reciprocals 9; G, E, H, F 10), the
-# sigmoid 6, S, exp(-τS) 2 and the add into Tacc (K1: 44); K2 the same 34
-# and 6, S, T_j 2, V, W 2, gF 5, and the separable gradient step 64.
-# Every other point of the window has occupancy exactly 0.0f and moves no
-# output, so the cull's points at these counts are the work these inputs
-# need: K1's and K2's bound.
-OPS_K1_CULLED = 44
-OPS_K2_CULLED = 115
 KERNEL_SOURCES = ("hardrender", "implicit", "explicit")
 KERNEL_ENTRIES = ("hardrender_kernel", "implicit_fwd_kernel",
                   "implicit_bwd_kernel", "explicit_fwd_kernel",
@@ -203,24 +186,6 @@ EXPLICIT_WINDOW_RTOL, EXPLICIT_WINDOW_ATOL = 1e-3, 5e-4
 # The plain loss materializes (B, 129³) float32 intermediates, dozens of
 # them under autograd: it runs in chunks of this many samples.
 PLAIN_CHUNK = 16
-# fp32 operations per in-window lattice point of the first port's kernels,
-# each logf/expf counted as one, read off their sources: two field
-# chains (2 × 49) and two sigmoids (2 × 6), d, and d² into the sum (2):
-# K5 113; K4 adds gF (5) and the gradient chain (108): 226. The window's
-# points at these counts give `bound_ms_window`, the yardstick kept from
-# version to version.
-OPS_K5 = 113
-OPS_K4 = 226
-# The redesigned K4 makes, per point it evaluates after the
-# exact-zero cull, 152 operations read off sqtpu_torch/csrc/explicit.cu and
-# sq_field.cuh: two field chains of 34 (u, v, w = u0 + c·z, 6; squares and
-# guards 9; the three powers by reciprocals 9; G, E, H, F 10), two sigmoids
-# of 6, d and d² into the sum (3), gF (5) and the separable gradient step
-# (64). Outside the cull's points d is exactly 0 and gF ±0, so these
-# points at these ops are the work these inputs need: K4's bound; K5's is
-# the same points at the value's part of the chain (152 - 5 - 64 = 83).
-OPS_K4_CULLED = 152
-OPS_K5_CULLED = OPS_K4_CULLED - 5 - 64
 # One explicit_sym train step, card (K4, windowed) against CPU (plain loss,
 # full sweep), c4 weights with remat, at batch 8 and 64³ so the CPU side
 # stays small: the loss relative 1e-3, the window's bound (the card's K4
@@ -375,7 +340,7 @@ def gray_levels_off(a, b) -> float:
 
 
 def k3_setting(p, n_sweep: int, n_bisect: int, off_max=None,
-               quantize: bool = True) -> dict:
+               quantize: bool = True, size: int = IMAGE) -> dict:
     """K3 at one sweep setting on the (B, 12) params ``p``: against its
     plain version (under PIXEL_TOL of the pixels off by more than a gray
     level, and at most ``off_max`` of them when given) and the torch
@@ -383,18 +348,20 @@ def k3_setting(p, n_sweep: int, n_bisect: int, off_max=None,
     differ at all; unquantized, where every rounding shows: by a gray
     level or more); twice, bit for bit; the inside tests of the kernel's
     ray-box intervals (the bound) and of the full sweep (the yardstick
-    kept from version to version); times and bounds."""
+    kept from version to version); times and bounds. ``size`` is the
+    image's side."""
     import torch
 
+    from sqtpu_torch.ops.kernels import bounds as B
     from sqtpu_torch.ops.kernels import hardrender as H
     from sqtpu_torch.ops.render import render_depth_hard_batch
 
     def kernel():
-        return H.render_depth_hard_cuda(p, IMAGE, n_sweep, n_bisect,
+        return H.render_depth_hard_cuda(p, size, n_sweep, n_bisect,
                                         quantize)
 
     def plain():
-        return render_depth_hard_batch(p, IMAGE, n_bisect=n_bisect,
+        return render_depth_hard_batch(p, size, n_bisect=n_bisect,
                                        quantize=quantize, n_sweep=n_sweep)
 
     got = kernel()
@@ -408,7 +375,7 @@ def k3_setting(p, n_sweep: int, n_bisect: int, off_max=None,
                            f"{bool(torch.isfinite(got).all())}")
     off = gray_levels_off(got, ref)
     err = float((got - ref).abs().max())
-    n_pix = p.shape[0] * IMAGE * IMAGE
+    n_pix = p.shape[0] * size * size
     if not (off < PIXEL_TOL and (off_max is None
                                  or round(off * n_pix) <= off_max)):
         raise RuntimeError(
@@ -418,9 +385,9 @@ def k3_setting(p, n_sweep: int, n_bisect: int, off_max=None,
     if float(got.max()) < 0.3:
         raise RuntimeError("K3 rendered nothing")
     par = H.pack_frames(p, n_sweep)
-    emu, tests = H.emulate_hardrender(par, IMAGE, n_sweep, n_bisect,
+    emu, tests = H.emulate_hardrender(par, size, n_sweep, n_bisect,
                                       quantize)
-    full, tests_full = H.emulate_hardrender(par, IMAGE, n_sweep,
+    full, tests_full = H.emulate_hardrender(par, size, n_sweep,
                                             n_bisect, quantize,
                                             interval=False)
     if not torch.equal(emu, full):
@@ -436,22 +403,21 @@ def k3_setting(p, n_sweep: int, n_bisect: int, off_max=None,
                            "gray level")
     # unquantized: how far the card's rounding moves the depth
     gap = (got - emu).abs() if not quantize else (
-        H.render_depth_hard_cuda(p, IMAGE, n_sweep, n_bisect, False)
-        - H.emulate_hardrender(par, IMAGE, n_sweep, n_bisect,
+        H.render_depth_hard_cuda(p, size, n_sweep, n_bisect, False)
+        - H.emulate_hardrender(par, size, n_sweep, n_bisect,
                                False)[0]).abs()
     ms = cuda_ms(kernel)
-    launch_ms = cuda_ms(lambda: H._launch(par, IMAGE, n_sweep, n_bisect,
+    launch_ms = cuda_ms(lambda: H._launch(par, size, n_sweep, n_bisect,
                                          quantize))
     pack_ms = cuda_ms(lambda: H.pack_frames(p, n_sweep))
     plain_ms = cuda_ms(plain)
     tests, tests_full = int(tests.sum()), int(tests_full.sum())
-    n_bytes = p.shape[0] * (24 * 4 + IMAGE * IMAGE * 4)
-    bytes_ms = n_bytes / PEAK_BYTES * 1e3
-    ops_ms = tests * OPS_PER_TEST / PEAK_FP32_OPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    full_ms = max(bytes_ms, tests_full * OPS_PER_TEST / PEAK_FP32_OPS * 1e3)
+    n_bytes = p.shape[0] * (24 * 4 + size * size * 4)
+    moved = B.bytes_ms(n_bytes)
+    bound_ms, bound_by = B.bound(B.ops_ms(tests, B.OPS_PER_TEST), moved)
+    full_ms = max(moved, B.ops_ms(tests_full, B.OPS_PER_TEST))
     progress(f"K3 ({n_sweep}, {n_bisect}{'' if quantize else ', unquantized'}"
-             f") B={p.shape[0]} S={IMAGE}: "
+             f") B={p.shape[0]} S={size}: "
              f"off>1 level {off:.2e} ({round(off * n_pix)} pixels), "
              f"max|err| {err:.4f}; against its emulation {emu_off} "
              f"pixels differ{'' if quantize else ' by a gray level or more'}"
@@ -465,11 +431,11 @@ def k3_setting(p, n_sweep: int, n_bisect: int, off_max=None,
              f"pixel, {tests / tests_full:.4f} of the full sweep's "
              f"{tests_full}: {full_ms:.4f} ms)")
     return {"n_sweep": n_sweep, "n_bisect": n_bisect, "batch": p.shape[0],
+            "image_size": size,
             "quantize": quantize, "frac_pixels_off": off, "max_abs_err": err, "ms": ms,
             "launch_ms": launch_ms, "pack_ms": pack_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "pixels_off_emulation": emu_off,
+            "bound_by": bound_by, "pixels_off_emulation": emu_off,
             "max_abs_err_emulation_unquantized": float(gap.max()),
             "inside_tests_full_sweep": tests_full,
             "inside_tests_made": tests, "bound_ms_full_sweep": full_ms}
@@ -687,20 +653,21 @@ def implicit_inputs(dev, seed: int):
     return truths, k3_imgs, pred, noise_imgs
 
 
-def implicit_times(k3_imgs, pred, n: int) -> list:
+def implicit_times(k3_imgs, pred, n: int, z_window: bool = True) -> list:
     """K1's and K2's times on ``pred`` (B, 12) against the images
-    ``k3_imgs`` at render size ``n`` (windowed, τ and sharpness of the
-    training path), the plain and emulated forward + backward, and the
-    bounds: the points after the exact-zero cull at the redesigned
-    kernels' operations, the window's at the first port's."""
+    ``k3_imgs`` at render size ``n`` (windowed or the full sweep, τ and
+    sharpness of the training path), the plain and emulated forward +
+    backward, and the bounds: the points after the exact-zero cull at the
+    redesigned kernels' operations, the window's at the first port's."""
     import torch
 
     from sqtpu_torch.ops import losses
+    from sqtpu_torch.ops.kernels import bounds as B
     from sqtpu_torch.ops.kernels import implicit as K
 
     b = pred.shape[0]
     img_xy = K.image_plane(k3_imgs, n)
-    par = K.pack_params(pred, n)
+    par = K.pack_params(pred, n, z_window)
     sums, tacc = K.cuda_fwd(img_xy, par, n, n, TAU, SHARP)
     g = torch.full_like(sums, 1.0 / (b * n * n))
     fwd_ms = cuda_ms(lambda: K.cuda_fwd(img_xy, par, n, n, TAU, SHARP))
@@ -713,7 +680,8 @@ def implicit_times(k3_imgs, pred, n: int) -> list:
 
     def emu_fwd_bwd():
         p = pred.clone().requires_grad_(True)
-        K.implicit_loss_emulated(k3_imgs, p, n, TAU, SHARP).backward()
+        K.implicit_loss_emulated(k3_imgs, p, n, TAU, SHARP,
+                                 z_window).backward()
 
     plain_ms = cuda_ms(plain_fwd_bwd)
     emu_ms = cuda_ms(emu_fwd_bwd, runs=5)
@@ -723,22 +691,20 @@ def implicit_times(k3_imgs, pred, n: int) -> list:
     culled = K.cull_points(par, n, n, TAU, SHARP)
     rows = []
     for name, ops_per, window_ops, n_bytes, ms in (
-            ("K1", OPS_K1_CULLED, OPS_K1,
+            ("K1", B.OPS_K1_CULLED, B.OPS_K1,
              par_bytes + 2 * plane_bytes + b * 4, fwd_ms),
-            ("K2", OPS_K2_CULLED, OPS_K2,
+            ("K2", B.OPS_K2_CULLED, B.OPS_K2,
              2 * par_bytes + b * 4 + 3 * plane_bytes, bwd_ms)):
-        ops_ms = culled * ops_per / PEAK_FP32_OPS * 1e3
-        bytes_ms = n_bytes / PEAK_BYTES * 1e3
-        window_ms = max(points * window_ops / PEAK_FP32_OPS * 1e3, bytes_ms)
-        rows.append({"ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": max(ops_ms, bytes_ms),
-                     "bound_by": "operations" if ops_ms >= bytes_ms
-                     else "bytes", "library_ms": None,
+        moved = B.bytes_ms(n_bytes)
+        bound_ms, bound_by = B.bound(B.ops_ms(culled, ops_per), moved)
+        window_ms = max(B.ops_ms(points, window_ops), moved)
+        rows.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None,
                      "points_after_cull": culled, "in_window_points": points,
                      "bound_ms_window": window_ms,
                      "emulation_fwd_bwd_ms": emu_ms})
         progress(f"{name} B={b} N={n}: {ms:.4f} ms, bound "
-                 f"{max(ops_ms, bytes_ms):.4f} ms ({culled} points after "
+                 f"{bound_ms:.4f} ms ({culled} points after "
                  f"the exact-zero cull, {culled / points:.4f} of the "
                  f"window's, {ops_per} ops each); the window's {points} "
                  f"points ({points / (b * n * n):.2f} per pixel) at "
@@ -1078,15 +1044,19 @@ def explicit_inputs(dev):
     return truths, pred
 
 
-def explicit_times(truths, pred, n: int, sharp: float) -> list:
+def explicit_times(truths, pred, n: int, sharp: float,
+                   z_window: bool = True) -> list:
     """K4's and K5's times on ``pred`` against ``truths`` (B, 12) at the
-    (N+1)³ lattice and ``sharp`` (windowed), the plain and emulated
-    versions, and the bounds: the points after the exact-zero cull at the
-    redesigned kernels' operations, the window's at the first port's."""
+    (N+1)³ lattice and ``sharp`` (windowed or the full sweep), the plain
+    and emulated versions, and the bounds
+    (:func:`sqtpu_torch.ops.kernels.bounds.explicit_bounds`): the points
+    after the exact-zero cull at the redesigned kernels' operations, the
+    window's at the first port's."""
+    from sqtpu_torch.ops.kernels import bounds as B
     from sqtpu_torch.ops.kernels import explicit as KE
 
     b = pred.shape[0]
-    par_t, par_p = KE.pack_params(truths, pred, n, True,
+    par_t, par_p = KE.pack_params(truths, pred, n, z_window,
                                   KE.default_margin(sharp))
     fused_ms = cuda_ms(lambda: KE.cuda_fused(par_t, par_p, n, sharp))
     fwd_ms = cuda_ms(lambda: KE.cuda_fwd(par_t, par_p, n, sharp))
@@ -1095,32 +1065,25 @@ def explicit_times(truths, pred, n: int, sharp: float) -> list:
                                                   True))
     plain_fwd_ms = cuda_ms(lambda: plain_explicit(truths, pred, n, sharp,
                                                   False))
-    points = KE.window_points(par_p, n)
-    culled = KE.cull_points(par_t, par_p, n, sharp)
-    par_bytes = 2 * b * KE.PAR_STRIDE * 4
+    bounds = B.explicit_bounds(par_t, par_p, n, sharp)
     rows = []
-    for name, ops_per, window_ops, n_bytes, ms, plain_ms in (
-            ("K4", OPS_K4_CULLED, OPS_K4,
-             par_bytes + b * 4 * (1 + KE.PAR_STRIDE), fused_ms,
-             plain_bwd_ms),
-            ("K5", OPS_K5_CULLED, OPS_K5, par_bytes + b * 4, fwd_ms,
-             plain_fwd_ms)):
-        ops_ms = culled * ops_per / PEAK_FP32_OPS * 1e3
-        bytes_ms = n_bytes / PEAK_BYTES * 1e3
-        window_ms = max(points * window_ops / PEAK_FP32_OPS * 1e3, bytes_ms)
+    for name, ms, plain_ms in (("K4", fused_ms, plain_bwd_ms),
+                               ("K5", fwd_ms, plain_fwd_ms)):
+        bd = bounds[name]
         rows.append({"ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": max(ops_ms, bytes_ms),
-                     "bound_by": "operations" if ops_ms >= bytes_ms
-                     else "bytes", "library_ms": None,
-                     "points_after_cull": culled, "in_window_points": points,
-                     "bound_ms_window": window_ms,
+                     "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+                     "library_ms": None,
+                     "points_after_cull": bd["points_after_cull"],
+                     "in_window_points": bd["in_window_points"],
+                     "bound_ms_window": bd["bound_ms_window"],
                      "emulation_fused_ms": emu_ms})
+        culled, points = bd["points_after_cull"], bd["in_window_points"]
         progress(f"{name} B={b} N={n}: {ms:.4f} ms, bound "
-                 f"{max(ops_ms, bytes_ms):.4f} ms ({culled} points after "
-                 f"the exact-zero cull, {culled / points:.4f} of the "
-                 f"window's, {ops_per} ops each); the window's {points} "
+                 f"{bd['bound_ms']:.4f} ms ({culled} points after the "
+                 f"exact-zero cull, {culled / points:.4f} of the window's, "
+                 f"{bd['ops_per_point']} ops each); the window's {points} "
                  f"points ({points / (b * (n + 1) ** 3):.3f} of the "
-                 f"lattice) at {window_ops} ops: {window_ms:.4f} ms; plain "
+                 f"lattice): {bd['bound_ms_window']:.4f} ms; plain "
                  f"{plain_ms:.3f} ms")
     return rows
 
@@ -1599,6 +1562,7 @@ def phase_slab(dev) -> dict:
     import torch
 
     from sqtpu_torch.ops.image import nearest_resize
+    from sqtpu_torch.ops.kernels import bounds as B
     from sqtpu_torch.ops.kernels import implicit as K
 
     n = LOSS_N
@@ -1706,28 +1670,28 @@ def phase_slab(dev) -> dict:
     plane_bytes = LOSS_B * n * cols * 4
     par_bytes = LOSS_B * K.PAR_STRIDE * 4
     culled = K.cull_points(par, n, cols, TAU, SHARP)
-    ops_ms = culled * (OPS_K1_CULLED + OPS_K2_CULLED) / PEAK_FP32_OPS * 1e3
+    ops_per = B.OPS_K1_CULLED + B.OPS_K2_CULLED
+    ops_ms = B.ops_ms(culled, ops_per)
     # K1: params and slab in, Tacc and sums out; K2: params, g, slab and
     # Tacc in, the cotangent and the params' gradient out
     n_bytes = (par_bytes + 2 * plane_bytes + LOSS_B * 4
                + 2 * par_bytes + LOSS_B * 4 + 3 * plane_bytes)
-    bytes_ms = n_bytes / PEAK_BYTES * 1e3
-    bound = max(ops_ms, bytes_ms)
-    window_ms = max(points * (OPS_K1 + OPS_K2) / PEAK_FP32_OPS * 1e3,
-                    bytes_ms)
+    bytes_ms = B.bytes_ms(n_bytes)
+    bound, bound_by = B.bound(ops_ms, bytes_ms)
+    window_ms = max(B.ops_ms(points, B.OPS_K1 + B.OPS_K2), bytes_ms)
     progress(f"K6 B={LOSS_B} N={n}, {cols} columns from 0: forward "
              f"{fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms, bound "
              f"{bound:.4f} ms ({culled} points after the exact-zero cull, "
              f"{culled / points:.4f} of the window's, "
-             f"{OPS_K1_CULLED + OPS_K2_CULLED} ops each); the window's "
-             f"{points} points at {OPS_K1 + OPS_K2} ops: {window_ms:.4f} "
+             f"{ops_per} ops each); the window's {points} points at "
+             f"{B.OPS_K1 + B.OPS_K2} ops: {window_ms:.4f} "
              f"ms; plain slab fwd+bwd {plain_ms:.3f} ms; worst "
              f"rel sum {worst['value']:.2e}, worst |grad err| "
              f"{worst['grad']:.2e}, worst |img grad err| "
              f"{worst['img_grad']:.2e}")
     return {"ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
             "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_by": bound_by,
             "library_ms": None, "points_after_cull": culled,
             "in_window_points": points, "bound_ms_window": window_ms,
             "max_abs_err": worst["grad"],
@@ -2381,13 +2345,14 @@ def hold_means(what: str, got: dict, want: tuple):
     return d_full, d_rot
 
 
-def implicit_vs_refs(what: str, imgs, pred, n: int) -> dict:
+def implicit_vs_refs(what: str, imgs, pred, n: int,
+                     z_window: bool = True) -> dict:
     """K1/K2 on ``pred`` (B, 12) against the images ``imgs`` (B, H, W) at
-    render size ``n`` (windowed, τ and sharpness of the training path):
-    the value and the batch mean's gradient against the emulation of
-    their algorithm and against the plain loss (autograd, every plane),
-    with phase 7's tolerances. Returns the worst relative value gap and
-    the worst |gradient gap|."""
+    render size ``n`` (windowed or the full sweep, τ and sharpness of the
+    training path): the value and the batch mean's gradient against the
+    emulation of their algorithm and against the plain loss (autograd,
+    every plane), with phase 7's tolerances. Returns the worst relative
+    value gap and the worst |gradient gap|."""
     from sqtpu_torch.ops import losses
     from sqtpu_torch.ops.kernels import implicit as K
 
@@ -2397,9 +2362,12 @@ def implicit_vs_refs(what: str, imgs, pred, n: int) -> dict:
         loss.backward()
         return loss.detach(), q.grad
 
-    got = value_and_grad(K.implicit_loss_cuda)
+    def windowed(fn):
+        return lambda *a: fn(*a, z_window=z_window)
+
+    got = value_and_grad(windowed(K.implicit_loss_cuda))
     worst = {"value": 0.0, "grad": 0.0}
-    for ref_name, fn in (("emulation", K.implicit_loss_emulated),
+    for ref_name, fn in (("emulation", windowed(K.implicit_loss_emulated)),
                          ("plain loss", losses.implicit_loss)):
         ref = value_and_grad(fn)
         rel = rel_err(float(got[0]), float(ref[0]))
@@ -2417,32 +2385,37 @@ def implicit_vs_refs(what: str, imgs, pred, n: int) -> dict:
     return worst
 
 
-def explicit_vs_refs(what: str, truths, pred, n: int, sharp: float) -> dict:
+def explicit_vs_refs(what: str, truths, pred, n: int, sharp: float,
+                     z_window: bool = True) -> dict:
     """K4 (value and the batch mean's gradient) and K5 (value) on ``pred``
     against ``truths`` (B, 12) at the (n+1)³ lattice and ``sharp``,
-    windowed: against the emulation of their algorithm with phase 11's
-    full-sweep bounds, and against the plain loss (autograd, the whole
-    lattice) with its windowed bounds. Returns the worst relative value
-    gap and the worst |gradient gap|."""
+    windowed or the full sweep: against the emulation of their algorithm
+    with phase 11's full-sweep bounds, and against the plain loss
+    (autograd, the whole lattice) with its windowed bounds, or the full
+    sweep's over the full sweep. Returns the worst relative value gap and
+    the worst |gradient gap|."""
     import torch
 
     from sqtpu_torch.ops.kernels import explicit as KE
 
     def value_and_grad(fn):
         q = pred.detach().clone().requires_grad_(True)
-        loss = fn(truths, q, n, sharp=sharp)
+        loss = fn(truths, q, n, sharp=sharp, z_window=z_window)
         loss.backward()
         return loss.detach(), q.grad
 
     got = value_and_grad(KE.explicit_loss_cuda)
     with torch.no_grad():
-        k5 = KE.explicit_loss_cuda(truths, pred, n, sharp=sharp)
+        k5 = KE.explicit_loss_cuda(truths, pred, n, sharp=sharp,
+                                   z_window=z_window)
+    plain_tol = ((EXPLICIT_WINDOW_RTOL, EXPLICIT_WINDOW_ATOL) if z_window
+                 else (VALUE_RTOL, GRAD_ATOL))
     worst = {"value": 0.0, "grad": 0.0}
     for ref_name, ref, vtol, gatol in (
             ("emulation", value_and_grad(KE.explicit_loss_emulated),
              VALUE_RTOL, GRAD_ATOL),
             ("plain loss", plain_explicit(truths, pred, n, sharp, True),
-             EXPLICIT_WINDOW_RTOL, EXPLICIT_WINDOW_ATOL)):
+             *plain_tol)):
         for kernel, value in (("K4", got[0]), ("K5", k5)):
             rel = rel_err(float(value), float(ref[0]))
             if not rel <= vtol:
@@ -2453,7 +2426,8 @@ def explicit_vs_refs(what: str, truths, pred, n: int, sharp: float) -> dict:
         worst["grad"] = max(worst["grad"], check_close(
             f"{what}: K4 vs the {ref_name}, pred gradient", got[1], ref[1],
             GRAD_RTOL, gatol))
-    progress(f"{what} B={pred.shape[0]} N={n} sharp {sharp}: K4/K5 within "
+    progress(f"{what} B={pred.shape[0]} N={n} sharp {sharp}"
+             f"{'' if z_window else ', full sweep'}: K4/K5 within "
              f"tolerance of the emulation and the plain loss (worst rel "
              f"value {worst['value']:.2e}, worst |grad err| "
              f"{worst['grad']:.2e})")
@@ -2769,10 +2743,11 @@ def phase_c4r1_trainer(truths, dev, card: str) -> dict:
 def phase_fit_cli(dev) -> dict:
     """``python -m sqtpu_torch.fit`` (its ``main``) three times on the
     card: LM on one view, LM on four turntable views, Adam on the implicit
-    loss (K1/K2); each must reach the JAX package's IoU on the same truth
-    from the same start, less FIT_IOU_TOL. K1/K2 at the Adam run's
-    setting (B=1, N=32) against their emulation and the plain loss, at
-    its start and at its result."""
+    loss (K1/K2 over the full sweep, as the JAX package's fit computes);
+    each must reach the JAX package's IoU on the same truth from the same
+    start, less FIT_IOU_TOL. K1/K2 at the Adam run's setting (B=1, N=32,
+    the full sweep) against their emulation and the plain loss, at its
+    start and at its result."""
     from sqtpu_torch import fit
     from sqtpu_torch.ops.kernels import render_hard_auto
     from sqtpu_torch.utils.config import FitConfig
@@ -2806,7 +2781,7 @@ def phase_fit_cli(dev) -> dict:
             for where, p in (("start", p0), ("result", p_fit)):
                 out[name][f"k1_k2_at_{where}"] = implicit_vs_refs(
                     f"fit {name}: K1/K2 at its {where}", img, p[None],
-                    cfg.render_size)
+                    cfg.render_size, z_window=False)
     return out
 
 
@@ -3436,6 +3411,526 @@ def phase_pretrained(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 34-36: Slice F2: the diagnostics (viz), the roofline, serving-load
+# and 2019-landscape tools.
+# ---------------------------------------------------------------------------
+
+# tests/test_tools.py:170-180's shape for the sweep and the turntable; its
+# fit's truth and perturbed start (:18-41) for the fit frames; the sweep's
+# end quaternion from numpy's generator, seed 3.
+VIZ_SHAPE = (0.18, 0.11, 0.26, 0.65, 0.15, 0.5, 0.5, 0.5,
+             -0.45, -0.24, 0.78, -0.35)
+FIT_TRUTH = (0.18, 0.22, 0.15, 0.5, 0.7, 0.5, 0.45, 0.55, 0.2, -0.1, 0.3,
+             0.92)
+FIT_DELTA = (0.05, -0.04, 0.03, 0.1, -0.1, 0.04, -0.05, 0.03, 0, 0, 0, 0)
+SLERP_N, SLERP_RENDER = 200, 32
+TURN_VIEWS, TURN_SIZE, TURN_BISECT = 8, 128, 24
+# The explicit fit: the JAX test's Adam at 5e-3 and 300 steps, at FitConfig's
+# render size 32, in 6 frames; its margins (tests/test_tools.py:39-41): the
+# last loss below 0.2 of the first, IoU@32 above 0.9. The implicit fit on
+# the K3 image of the same truth: FitConfig's SGD at 1e-3, 3 frames of 50
+# steps (Adam there is chaotic in the last bits, ROADMAP.md Queue 3).
+FIT_EXPLICIT = dict(loss="explicit", render_size=32, steps=300,
+                    learning_rate=5e-3, optimizer="adam")
+FIT_IMPLICIT = dict(loss="implicit", render_size=32, steps=150,
+                    learning_rate=1e-3, optimizer="sgd")
+FIT_FRAMES = {"explicit": 6, "implicit": 3}
+FIT_LOSS_DROP, FIT_MIN_IOU = 0.2, 0.9
+# A frame's params (relative to the vector's largest) and loss on the card
+# against the CPU's float64 run of the same segments: at most the larger of
+# FIT_RTOL and FIT_GAP_FACTOR times the CPU's own float32 run's gap, read
+# in the same run first (CPU readings: params 1.7e-7, losses up to 1.6e-4
+# relative near the explicit fit's optimum, where the loss is 7e-5).
+FIT_RTOL, FIT_GAP_FACTOR = 1e-3, 3.0
+# The sweep's angles and quaternion losses (plain torch in float32 on the
+# card against float64): absolute.
+SWEEP_ATOL = 1e-5
+# The roofline tool's K4 against phase 11's, scaled by the work (the
+# points after the exact-zero cull): within 25%.
+ROOFLINE_K4_RTOL = 0.25
+ROOFLINE_MAX_FRACTION = 1.05
+# serve_bench: 8 clients x 25 requests on the c4 weights, batch 64; each
+# client's first answer against the in-process model's prediction.
+SERVE_BENCH_CLIENTS, SERVE_BENCH_REQUESTS = 8, 25
+SERVE_BENCH_TOL = 1e-5
+# The probe at two rotations, fed the JAX tool's own truths and starts
+# (tests/torch_port_probe_pins.json, `python tests/torch_port_pins.py
+# probe`): the first 10 steps' losses at PROBE_RTOL where both are finite,
+# the non-finite-gradient flags equal, each mean final IoU within
+# PROBE_IOU_TOL (300 fp32 Adam steps are chaotic in the last bits); at
+# 1.57 rad explicit2020's mean final IoU at least PROBE_MARGIN above
+# keras_clip=100's (README's capture-range table).
+PROBE_PINS = os.path.join(ROOT, "tests", "torch_port_probe_pins.json")
+PROBE_RTOL, PROBE_IOU_TOL, PROBE_MARGIN = 1e-4, 0.03, 0.15
+
+
+def unit_quat_params(values, dev, dtype=None):
+    import torch
+
+    p = torch.tensor(values, dtype=dtype or torch.float32)
+    p = torch.cat([p[:8], p[8:] / torch.linalg.vector_norm(p[8:])])
+    return p.to(dev)
+
+
+def sweep_vs_plain(loss: str, dev) -> dict:
+    """``viz.slerp_sweep`` on the card (float32) for ``loss``, its
+    launches, and the same batch's numbers on the CPU in float64 (the
+    plain losses): the loss relative VALUE_RTOL per sample (K5 and K1 on
+    the full sweep), the angles and the quaternion loss SWEEP_ATOL, each
+    IoU equal or apart by one voxel's share of its union."""
+    import numpy as np
+    import torch
+
+    from sqtpu_torch import viz
+    from sqtpu_torch.ops import geometry, losses, metrics
+    from sqtpu_torch.ops import quaternion as quat
+    from sqtpu_torch.ops.render import render_depth_soft
+
+    base = unit_quat_params(VIZ_SHAPE, dev)
+    q0 = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
+    q1 = np.random.default_rng(3).normal(size=4)
+    q1 = torch.tensor(q1 / np.linalg.norm(q1), dtype=torch.float32,
+                      device=dev)
+    reset_counts()
+    angs, ls, ious = (torch.from_numpy(v) for v in viz.slerp_sweep(
+        base, q0, q1, loss, SLERP_N, SLERP_RENDER))
+    launches = counts()
+    want = {"explicit": (0, 0, 0, 0, 1), "implicit": (0, 1, 0, 0, 0),
+            "quaternion": (0, 0, 0, 0, 0)}[loss]
+    if launches[:5] != want:
+        raise RuntimeError(f"slerp_sweep {loss}: launches {launches}, "
+                           f"expected K3/K1/K2/K4/K5 {want}")
+    # the same batch in float64 on the CPU
+    qs = quat.slerp(q0, q1, geometry.make_axis(SLERP_N, "iou",
+                                               device=dev))
+    b64 = base.double().cpu()
+    true64 = b64[None].expand(SLERP_N, -1)
+    pred64 = torch.cat([true64[:, :8], qs.double().cpu()], dim=-1)
+    q_true = b64[8:]
+    if loss == "explicit":
+        ref = losses.explicit_loss(true64, pred64, SLERP_RENDER, False)
+    elif loss == "implicit":
+        target = render_depth_soft(base, SLERP_RENDER).double().cpu()
+        ref = losses.implicit_loss(target.expand(SLERP_N, -1, -1), pred64,
+                                   SLERP_RENDER, reduce=False)
+    else:
+        ref = losses.quaternion_loss(pred64[:, 8:], q_true[None], False)
+    inter, union = metrics.iou_counts(true64, pred64, SLERP_RENDER)
+    ref_ang = metrics.angle_error(q_true[None], pred64[:, 8:])
+    ls, angs, ious = ls.double(), angs.double(), ious.double()
+    rel = float(((ls - ref).abs() / ref.abs()).max())
+    if loss == "quaternion":
+        rel = float((ls - ref).abs().max())
+    if not rel <= (SWEEP_ATOL if loss == "quaternion" else VALUE_RTOL):
+        raise RuntimeError(f"slerp_sweep {loss}: loss off the plain float64 "
+                           f"loss by {rel:.2e}")
+    ang_err = float((angs - ref_ang).abs().max())
+    iou_err = (ious - inter.double() / union.double()).abs()
+    if not (ang_err <= SWEEP_ATOL
+            and bool((iou_err <= 1.0 / union.double() + 1e-12).all())):
+        raise RuntimeError(f"slerp_sweep {loss}: angles {ang_err:.2e} off, "
+                           f"IoUs {float(iou_err.max()):.2e} off")
+    apart = int((iou_err > 1e-6).sum())
+    progress(f"slerp_sweep {loss} n={SLERP_N} N={SLERP_RENDER}: launches "
+             f"K1 {launches[1]}, K5 {launches[4]}; against float64 on the "
+             f"CPU: loss {'abs' if loss == 'quaternion' else 'rel'} "
+             f"{rel:.2e}, angles {ang_err:.2e}, IoUs {apart} of {SLERP_N} "
+             f"apart by more than 1e-6 (each ≤ one voxel)"
+             f"; losses {float(ls.min()):.4g}..{float(ls.max()):.4g}, "
+             f"IoUs {float(ious.min()):.3f}..{float(ious.max()):.3f}")
+    return {"launches": launches[:5], "loss_err": rel, "angle_err": ang_err,
+            "ious_apart": apart,
+            "pred": torch.cat([base[None].expand(SLERP_N, -1)[:, :8],
+                               qs], dim=-1)}
+
+
+def frame_gaps(frames, last, frames_ref, last_ref) -> tuple:
+    """(params gap, loss gap) of a fit's frames against a reference run's:
+    the largest |Δ| over a frame's 12 params relative to the reference
+    frame's largest, and the largest relative |Δ| of the frames' losses."""
+    p_gap = max(float((a.double().cpu() - b.double().cpu()).abs().max()
+                      / b.double().abs().max())
+                for a, b in zip(frames, frames_ref))
+    l_gap = max(abs(a - b) / abs(b) for a, b in zip(last, last_ref))
+    return p_gap, l_gap
+
+
+def fit_frames_vs_cpu(loss: str, dev) -> dict:
+    """``viz.fit_frames`` on the card for ``loss`` (K4, or K1/K2 on the K3
+    image of the truth), its launches, held against the CPU's float64 run
+    of the same segments from the same start: the bound is the larger of
+    FIT_RTOL and FIT_GAP_FACTOR times the CPU's own float32 run's gap,
+    measured first. The explicit fit must also meet the JAX test's
+    margins."""
+    import torch
+
+    from sqtpu_torch import viz
+    from sqtpu_torch.ops import metrics
+    from sqtpu_torch.ops.kernels import explicit_loss_auto, render_hard_auto
+    from sqtpu_torch.utils.config import FitConfig
+
+    kw = FIT_EXPLICIT if loss == "explicit" else FIT_IMPLICIT
+    n_frames = FIT_FRAMES[loss]
+    truth = unit_quat_params(FIT_TRUTH, dev)
+    start = truth + torch.tensor(FIT_DELTA, device=dev)
+    img = None
+    if loss == "implicit":
+        img = render_hard_auto(truth[None], IMAGE, n_sweep=IMAGE,
+                               n_bisect=12, quantize=True)[0]
+    cpu = torch.device("cpu")
+
+    def run(device, dtype):
+        cfg = FitConfig(device=device.type, **kw)
+        t0 = time.perf_counter()
+        out = viz.fit_frames(cfg, truth.to(device, dtype), n_frames,
+                             start.to(device, dtype),
+                             None if img is None else img.to(device, dtype))
+        return out, time.perf_counter() - t0
+
+    (f64, l64, _), s64 = run(cpu, torch.float64)
+    (f32, l32, _), _ = run(cpu, torch.float32)
+    cpu_gap = frame_gaps(f32, l32, f64, l64)
+    bound = tuple(max(FIT_RTOL, FIT_GAP_FACTOR * g) for g in cpu_gap)
+    progress(f"fit frames ({loss}) on the CPU: float32 against float64 "
+             f"params {cpu_gap[0]:.2e}, losses {cpu_gap[1]:.2e}; the "
+             f"card's bounds {bound[0]:.2e}, {bound[1]:.2e}")
+    reset_counts()
+    (frames, last, steps), seconds = run(dev, torch.float32)
+    torch.cuda.synchronize()
+    launches = counts()
+    total = kw["steps"] // n_frames * n_frames
+    want = ((0, 0, 0, total, 0) if loss == "explicit"
+            else (0, total, total, 0, 0))
+    if launches[:5] != want:
+        raise RuntimeError(f"fit frames ({loss}): launches {launches}, "
+                           f"expected K3/K1/K2/K4/K5 {want}")
+    gap = frame_gaps(frames, last, f64, l64)
+    if not (gap[0] <= bound[0] and gap[1] <= bound[1]):
+        raise RuntimeError(f"fit frames ({loss}): the card's params "
+                           f"{gap[0]:.2e} and losses {gap[1]:.2e} off the "
+                           f"CPU's float64 run (bounds {bound})")
+    out = {"launches": launches[:5], "frames": n_frames, "steps": steps,
+           "card_gap": gap, "cpu_fp32_gap": cpu_gap, "bound": bound,
+           "card_s": seconds, "cpu_fp64_s": s64, "last_losses": last}
+    if loss == "explicit":
+        with torch.no_grad():
+            first = float(explicit_loss_auto(truth[None], start[None],
+                                             kw["render_size"],
+                                             z_window=False))
+        iou = float(metrics.iou(truth[None].double(),
+                                frames[-1][None].double(), 32))
+        if not (last[-1] < FIT_LOSS_DROP * first and iou > FIT_MIN_IOU):
+            raise RuntimeError(f"explicit fit: last loss {last[-1]:.3e} "
+                               f"against the start's {first:.3e}, IoU@32 "
+                               f"{iou:.4f}")
+        out.update(start_loss=first, iou32=iou)
+    progress(f"fit frames ({loss}, {n_frames} x {steps} steps): launches "
+             f"{launches[:5]}, {seconds:.2f} s on the card; against the "
+             f"CPU's float64 run params {gap[0]:.2e}, losses {gap[1]:.2e}; "
+             f"last losses {', '.join(f'{x:.4g}' for x in last)}"
+             + (f"; start loss {out['start_loss']:.4g}, IoU@32 "
+                f"{out['iou32']:.4f}" if loss == "explicit" else ""))
+    out["img"], out["truth"], out["start"] = img, truth, start
+    return out
+
+
+def draw_everything(dev, out_dir: str) -> list:
+    """Every plot of ``sqtpu_torch.viz`` into ``out_dir`` (its numbers on
+    the card); raises unless each file is non-empty."""
+    import torch
+
+    from sqtpu_torch import viz
+    from sqtpu_torch.ops import geometry
+    from sqtpu_torch.utils.config import FitConfig
+
+    base = unit_quat_params(VIZ_SHAPE, dev)
+    truth = unit_quat_params(FIT_TRUTH, dev)
+    start = truth + torch.tensor(FIT_DELTA, device=dev)
+    q0 = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
+    files = []
+
+    def out(name):
+        files.append(os.path.join(out_dir, name))
+        return files[-1]
+
+    viz.slerp_sweep(base, q0, base[8:], "explicit", 16, 16, out("sweep.png"))
+    views = viz.turntable(base, out("turntable.png"), 4, 32)
+    viz.depth_grid(views, views, out("grid.png"))
+    for mode in viz.PLOT_RENDER_MODES:
+        viz.voxel_scatter(base, out(f"vox_{mode}.png"), n=12, mode=mode)
+    viz.plot_points(geometry.sample_surface(base, 16, 8), out("pts.png"))
+    cfg = FitConfig(device="cuda", **{**FIT_EXPLICIT, "steps": 20})
+    viz.fit_view(cfg, truth, out("fit.png"), 2, start)
+    viz.fit_animation(cfg, truth, out("fit.html"), 2, start)
+    viz.plot_grad_flow({"a": {"kernel": torch.ones(3, device=dev)}},
+                       out("grad.png"))
+    hist = os.path.join(out_dir, "m.jsonl")
+    with open(hist, "w") as f:
+        f.write(json.dumps({"epoch": 0, "train_loss": 1.0}) + "\n")
+    viz.plot_history(hist, out("hist.png"))
+    empty = [f for f in files if not os.path.getsize(f)]
+    if empty:
+        raise RuntimeError(f"empty plots: {empty}")
+    return files
+
+
+def phase_viz(dev) -> dict:
+    """Phase 34: ``sqtpu_torch.viz``'s numbers on the card in float32 and
+    their kernels' rows at this slice's settings: the slerp sweeps (K5, K1
+    on the full sweep, B = SLERP_N), the turntable (K3, one (V, 12)
+    batch, unquantized), the fit frames (K4 at B = 1, K1/K2), the kernels
+    at those settings against their plain versions; every plot when
+    matplotlib imports."""
+    import importlib.util
+
+    import torch
+
+    from sqtpu_torch import viz
+    from sqtpu_torch.ops.render import camera_frame_params, render_depth_soft
+
+    out = {}
+    sweeps = {loss: sweep_vs_plain(loss, dev)
+              for loss in ("explicit", "implicit", "quaternion")}
+    # the turntable: its views on the card against the plain renderer
+    base = unit_quat_params(VIZ_SHAPE, dev)
+    reset_counts()
+    angles, views = viz.turntable_views(base, TURN_VIEWS, TURN_SIZE)
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches[:5] != (1, 0, 0, 0, 0):
+        raise RuntimeError(f"turntable: launches {launches}")
+    _, plain = viz.turntable_views(base.cpu(), TURN_VIEWS, TURN_SIZE)
+    off = gray_levels_off(views.cpu(), plain)
+    if not (off < PIXEL_TOL and float(views.max()) > 0.3):
+        raise RuntimeError(f"turntable: {off:.2e} of pixels off by more "
+                           "than one gray level")
+    progress(f"turntable {TURN_VIEWS} views at {TURN_SIZE}²: one K3 launch, "
+             f"{off:.2e} of pixels off the plain renderer by more than a "
+             "gray level")
+    frames = camera_frame_params(
+        base, viz.turntable_cameras(TURN_VIEWS, device=dev)[1])
+    out["turntable"] = {"launches": launches[:5], "frac_pixels_off": off,
+                        "k3": k3_setting(frames, TURN_SIZE, TURN_BISECT,
+                                         quantize=False, size=TURN_SIZE)}
+    fits = {loss: fit_frames_vs_cpu(loss, dev)
+            for loss in ("explicit", "implicit")}
+    # the kernels at this slice's settings against their plain versions
+    ex = sweeps["explicit"]["pred"]
+    true_b = base[None].expand(SLERP_N, -1).contiguous()
+    explicit_vs_refs("K4/K5 at the sweep's batch", true_b, ex, SLERP_RENDER,
+                     5.0, z_window=False)
+    k4_sweep, k5_sweep = explicit_times(true_b, ex, SLERP_RENDER, 5.0,
+                                        z_window=False)
+    target = render_depth_soft(base, SLERP_RENDER).expand(
+        SLERP_N, -1, -1).contiguous()
+    implicit_vs_refs("K1/K2 at the sweep's batch", target, ex,
+                     SLERP_RENDER, z_window=False)
+    k1_sweep, k2_sweep = implicit_times(target, ex, SLERP_RENDER,
+                                        z_window=False)
+    # at the fits' start (at the explicit fit's end the loss is 1e-5, a
+    # sum of tiny terms whose float32 rounding alone moves it 1e-4)
+    fe, fi = fits["explicit"], fits["implicit"]
+    explicit_vs_refs("K4/K5 at the fit's start", fe["truth"][None],
+                     fe["start"][None], FIT_EXPLICIT["render_size"], 5.0,
+                     z_window=False)
+    k4_fit, _ = explicit_times(fe["truth"][None], fe["start"][None],
+                               FIT_EXPLICIT["render_size"], 5.0,
+                               z_window=False)
+    implicit_vs_refs("K1/K2 at the implicit fit's start", fi["img"][None],
+                     fi["start"][None], FIT_IMPLICIT["render_size"],
+                     z_window=False)
+    if importlib.util.find_spec("matplotlib") is None:
+        progress("matplotlib is not installed on this host: the plots are "
+                 "drawn only by the CPU tests (tests/test_torch_port_viz.py)"
+                 "; every number above ran on the card")
+        out["plots"] = None
+    else:
+        with tempfile.TemporaryDirectory() as d:
+            out["plots"] = len(draw_everything(dev, d))
+        progress(f"drew {out['plots']} plots, none empty")
+    for v in sweeps.values():
+        del v["pred"]
+    for v in fits.values():
+        for k in ("img", "truth", "start"):
+            del v[k]
+    out.update(sweeps=sweeps, fits=fits,
+               rows={"k5_sweep": k5_sweep, "k4_sweep": k4_sweep,
+                     "k1_sweep": k1_sweep, "k2_sweep": k2_sweep,
+                     "k4_fit": k4_fit})
+    return out
+
+
+def _module_json(argv: list, timeout: int) -> dict:
+    """Run ``python -m <argv>`` from the checkout; its last line parsed."""
+    res = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    if res.returncode:
+        raise RuntimeError(f"{' '.join(argv)} exited {res.returncode}:\n"
+                           f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def phase_roofline(k4_row: dict) -> dict:
+    """Phase 35: ``python -m sqtpu_torch.tools.roofline_explicit`` at its
+    default batch: its K4 time against phase 11's scaled by the work (the
+    points after the exact-zero cull; the tool's predictions are a second
+    random set, wider windows than phase 11's truth + noise), its
+    fraction of the bound in (0, ROOFLINE_MAX_FRACTION]."""
+    rec = _module_json(["sqtpu_torch.tools.roofline_explicit"], 600)
+    print(json.dumps({"roofline_explicit": rec}), flush=True)
+    scale = rec["points_after_cull"] / k4_row["points_after_cull"]
+    want = k4_row["ms"] * scale
+    rel = rel_err(rec["kernel_ms"], want)
+    frac = rec["fraction_of_bound"]
+    if not (rel <= ROOFLINE_K4_RTOL and 0 < frac <= ROOFLINE_MAX_FRACTION):
+        raise RuntimeError(f"roofline: K4 {rec['kernel_ms']:.3f} ms against "
+                           f"phase 11's {k4_row['ms']:.3f} ms x {scale:.3f} "
+                           f"(rel {rel:.3f}), fraction of the bound {frac}")
+    progress(f"roofline B={rec['batch']}: K4 {rec['kernel_ms']:.3f} ms "
+             f"(phase 11's scaled by the work {want:.3f}, rel {rel:.3f}; "
+             f"{rec['batch'] / C4C_B:.2f}x the batch), "
+             f"{rec['fraction_of_bound']:.4f} of its bound; encoder step "
+             f"{rec['encoder_fp32_ms']:.1f} / {rec['encoder_bf16_ms']:.1f} "
+             f"ms (fp32 / bf16), full explicit_sym step "
+             f"{rec['full_step_ms']:.1f} / {rec['full_step_bf16_ms']:.1f} ms")
+    return rec
+
+
+def phase_serve_bench(dev) -> dict:
+    """Phase 36a: ``python -m sqtpu_torch.tools.serve_bench`` with
+    SERVE_BENCH_CLIENTS x SERVE_BENCH_REQUESTS requests on the c4 weights
+    at batch 64: no error, every request answered, each client's first
+    answer the in-process model's prediction of its image within
+    SERVE_BENCH_TOL."""
+    import numpy as np
+    import torch
+
+    from sqtpu_torch.data.bmp import read_bmp
+    from sqtpu_torch.evaluate import load_eval_state, predict
+    from sqtpu_torch.tools.serve_bench import N_IMAGES, render_request_images
+    from sqtpu_torch.utils.config import ServeConfig
+
+    sock_dir = tempfile.mkdtemp(prefix="sqb")
+    if len(sock_dir) > 90:  # a UNIX socket path has room for ~107 bytes
+        sock_dir = tempfile.mkdtemp(prefix="sqb", dir="/tmp")
+    try:
+        rep = _module_json([
+            "sqtpu_torch.tools.serve_bench", "--ckpt", WEIGHTS,
+            "--clients", str(SERVE_BENCH_CLIENTS), "--requests",
+            str(SERVE_BENCH_REQUESTS), "--batch-size", "64",
+            "--socket", os.path.join(sock_dir, "s.sock"),
+            "--out", os.path.join(sock_dir, "report.json")], 600)
+        n = SERVE_BENCH_CLIENTS * SERVE_BENCH_REQUESTS
+        if not (rep["errors"] == 0 and rep["completed"] == n
+                and rep["server_stats"]["errors"] == 0):
+            raise RuntimeError(f"serve_bench: {json.dumps(rep)[:2000]}")
+        paths = render_request_images(N_IMAGES, sock_dir, dev)
+        model = load_eval_state(ServeConfig(ckpt_dir=WEIGHTS,
+                                            device="cuda"), dev)
+        worst = 0.0
+        with torch.no_grad():
+            for r in rep["first_responses"]:
+                img = read_bmp(os.path.join(sock_dir, r["image"]))
+                x = torch.from_numpy(img.astype(np.float32) / 255.0)
+                want = predict(model, x.to(dev)[None, ..., None])[0]
+                worst = max(worst, float(np.abs(
+                    np.asarray(r["params"]) - want.cpu().numpy()).max()))
+        if not (len(rep["first_responses"]) == SERVE_BENCH_CLIENTS
+                and len(paths) == N_IMAGES and worst <= SERVE_BENCH_TOL):
+            raise RuntimeError(f"serve_bench: first answers off the "
+                               f"in-process model by {worst:.2e}")
+    finally:
+        for f in os.listdir(sock_dir):
+            os.remove(os.path.join(sock_dir, f))
+        os.rmdir(sock_dir)
+    lat = rep["latency_ms"]
+    progress(f"serve_bench {SERVE_BENCH_CLIENTS} clients x "
+             f"{SERVE_BENCH_REQUESTS}: {rep['completed']} answered, 0 "
+             f"errors, first answers within {worst:.2e} of the in-process "
+             f"model; latency ms p50 {lat['p50']:.2f}, p90 {lat['p90']:.2f}"
+             f", p99 {lat['p99']:.2f}, mean {lat['mean']:.2f}, max "
+             f"{lat['max']:.2f}; {rep['req_per_s']:.1f} req/s; server "
+             f"{json.dumps(rep['server_stats'])}")
+    rep["first_answer_max_err"] = worst
+    del rep["first_responses"]
+    return rep
+
+
+def phase_probe(dev) -> dict:
+    """Phase 36b: the 2019-landscape probe's descent on the card, fed the
+    JAX tool's truths and starts (PROBE_PINS), held to its run: the first
+    10 steps' losses, the non-finite-gradient flags, the mean final IoUs;
+    and README's finding at 1.57 rad. K4 at the probe's batch against its
+    plain version."""
+    import numpy as np
+    import torch
+
+    from sqtpu_torch.ops import metrics
+    from sqtpu_torch.tools.probe_keras2019 import descend
+
+    with open(PROBE_PINS) as f:
+        pins = json.load(f)
+    out = {"launches": {}}
+    for rot, case in pins["rots"].items():
+        truth = torch.tensor(case["truth"], device=dev)
+        p0 = torch.tensor(case["p0"], device=dev)
+        for name, ref in case["losses"].items():
+            reset_counts()
+            t0 = time.perf_counter()
+            pf, ls, bad = descend(name, truth, p0, pins["lr"], pins["steps"])
+            iouf = metrics.iou(truth, pf, 64, reduce=False)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            out["launches"][f"{rot} {name}"] = counts()[:5]
+            got = ls[:, :10].double().cpu().numpy()
+            want = np.asarray(ref["losses_first_10"], np.float64)
+            fin = np.isfinite(got) & np.isfinite(want)
+            rel = float(np.max(np.abs(got - want)[fin] / np.abs(want)[fin],
+                               initial=0.0))
+            nan_flags = [bool(x) for x in bad.any(dim=1).cpu()]
+            mean_iou = float(iouf.mean())
+            if not (rel <= PROBE_RTOL and nan_flags == ref["any_nan_grad"]
+                    and abs(mean_iou - ref["mean_final_iou"])
+                    <= PROBE_IOU_TOL):
+                raise RuntimeError(
+                    f"probe {name} at {rot} rad: first losses rel {rel:.2e}"
+                    f", NaN flags {nan_flags} (JAX {ref['any_nan_grad']}), "
+                    f"mean final IoU {mean_iou:.4f} (JAX "
+                    f"{ref['mean_final_iou']:.4f})")
+            out[f"{rot} {name}"] = {
+                "first_losses_rel": rel, "finite_steps": int(fin.sum()),
+                "mean_final_iou": mean_iou,
+                "jax_mean_final_iou": ref["mean_final_iou"],
+                "any_nan_grad": nan_flags, "seconds": seconds}
+            progress(f"probe {name} at {rot} rad ({pins['seeds']} seeds x "
+                     f"{pins['steps']} steps, {seconds:.2f} s): first 10 "
+                     f"losses rel {rel:.2e} ({int(fin.sum())} finite), mean "
+                     f"final IoU {mean_iou:.4f} (JAX on the CPU "
+                     f"{ref['mean_final_iou']:.4f}), NaN gradients "
+                     f"{nan_flags}; launches {out['launches'][f'{rot} {name}']}")
+    gap = (out["1.57 explicit2020"]["mean_final_iou"]
+           - out["1.57 keras_clip=100"]["mean_final_iou"])
+    if not gap >= PROBE_MARGIN:
+        raise RuntimeError(f"probe at 1.57 rad: explicit2020 only {gap:.4f} "
+                           f"above keras_clip=100")
+    k4_launches = sum(v[3] for k, v in out["launches"].items()
+                      if "explicit2020" in k)
+    if not k4_launches:
+        raise RuntimeError("the probe's explicit2020 launched no K4")
+    case = pins["rots"]["0.35"]
+    truth = torch.tensor(case["truth"], device=dev)
+    p0 = torch.tensor(case["p0"], device=dev)
+    explicit_vs_refs("K4/K5 at the probe's batch", truth, p0, 32, 5.0,
+                     z_window=False)
+    k4_probe, _ = explicit_times(truth, p0, 32, 5.0, z_window=False)
+    progress(f"probe: at 1.57 rad explicit2020 {gap:.4f} above "
+             f"keras_clip=100 (README: ≥ {PROBE_MARGIN})")
+    out["margin_1.57"] = gap
+    out["k4_row"] = k4_probe
+    return out
+
+
 def registers_of(ptxas: str, entry: str):
     """Registers a kernel got in ``ptxas -v`` output (None if absent)."""
     import re
@@ -3600,6 +4095,18 @@ def main() -> int:
     pretrained = phase_pretrained(dev, card)
     progress("phase 33 the pretrained encoder: c4's to the bit at step 0, "
              "then trained")
+    viz = phase_viz(dev)
+    progress("phase 34 viz on the card: slerp sweeps (K5, K1), the "
+             "turntable (K3) and the fit frames (K4, K1/K2) match the "
+             "CPU's float64 numbers")
+    roofline = phase_roofline(fused_row)
+    progress("phase 35 the roofline tool times the trainer's K4 within its "
+             "bound")
+    serve_bench = phase_serve_bench(dev)
+    probe = phase_probe(dev)
+    progress("phase 36 serve_bench answered every request as the "
+             "in-process model; the probe holds the JAX package's run and "
+             "README's finding")
     f1_runs = {"ssl1_bf16": bf16["trainer"],
                "ssl1_bf16_profiled": bf16["trainer_profiled"],
                "keras_rot_fixed": krf["trainer"],
@@ -3634,6 +4141,8 @@ def main() -> int:
          "launches_keras_iso_eval": iso["eval"]["launches"],
          **{f"launches_{k}": v[0][0] for k, v in f1_runs.items()
             if k != "keras_iso"},
+         "turntable_setting": viz["turntable"]["k3"],
+         "launches_turntable": viz["turntable"]["launches"][0],
          **row},
         {"name": "implicit_fwd", "route": "cuda",
          "source": "sqtpu_torch/csrc/implicit.cu",
@@ -3646,6 +4155,11 @@ def main() -> int:
          "launches_fit_adam": fits[" ".join(FIT_RUNS[2][0])]["launches"][1],
          "launches_bf16": bf16["trainer"][0][1],
          "launches_r6d": others["r6d_b"][0][1],
+         "slerp_setting": viz["rows"]["k1_sweep"],
+         "launches_slerp_implicit":
+             viz["sweeps"]["implicit"]["launches"][1],
+         "launches_fit_view_implicit":
+             viz["fits"]["implicit"]["launches"][1],
          **fwd_row},
         {"name": "implicit_bwd", "route": "cuda",
          "source": "sqtpu_torch/csrc/implicit.cu",
@@ -3658,6 +4172,9 @@ def main() -> int:
          "launches_fit_adam": fits[" ".join(FIT_RUNS[2][0])]["launches"][2],
          "launches_bf16": bf16["trainer"][0][2],
          "launches_r6d": others["r6d_b"][0][2],
+         "slerp_setting": viz["rows"]["k2_sweep"],
+         "launches_fit_view_implicit":
+             viz["fits"]["implicit"]["launches"][2],
          **bwd_row},
         {"name": "explicit_fused", "route": "cuda",
          "source": "sqtpu_torch/csrc/explicit.cu",
@@ -3666,7 +4183,12 @@ def main() -> int:
          "registers": ptxas_registers("explicit", "explicit_fused_kernel"),
          "n64": fused64, "c4r1_setting": c4r1["k4"],
          "launches_c4r1": c4r1["c4r1"][0][3], "krf_setting": krf["k4"],
-         "launches_krf": krf["trainer"][0][3], **fused_row},
+         "launches_krf": krf["trainer"][0][3],
+         "fit_view_setting": viz["rows"]["k4_fit"],
+         "launches_fit_view": viz["fits"]["explicit"]["launches"][3],
+         "probe_setting": probe["k4_row"],
+         "launches_probe": sum(v[3] for v in probe["launches"].values()),
+         "slerp_batch_setting": viz["rows"]["k4_sweep"], **fused_row},
         {"name": "explicit_fwd", "route": "cuda",
          "source": "sqtpu_torch/csrc/explicit.cu",
          "replaces": "sqtpu/ops/kernels/explicit.py:150",
@@ -3674,7 +4196,12 @@ def main() -> int:
          "registers": ptxas_registers("explicit", "explicit_fwd_kernel"),
          "n64": efwd64, "c4r1_setting": c4r1["k5"],
          "launches_c4r1": c4r1["c4r1"][0][4], "krf_setting": krf["k5"],
-         "launches_krf": krf["trainer"][0][4], **efwd_row},
+         "launches_krf": krf["trainer"][0][4],
+         "slerp_setting": viz["rows"]["k5_sweep"],
+         "launches_slerp_explicit":
+             viz["sweeps"]["explicit"]["launches"][4],
+         "launches_probe": sum(v[4] for v in probe["launches"].values()),
+         **efwd_row},
         # rank 0's launches in phase 17's 2-epoch run, forward and backward
         {"name": "implicit_slab", "route": "cuda",
          "source": "sqtpu_torch/csrc/implicit.cu",
@@ -3702,6 +4229,14 @@ def main() -> int:
                           "krf_neutral_start": krf["neutral_start"],
                           "keras_iso_eval": iso["eval"]},
                       "c4r1_step_split_ms": c4r1["split"],
+                      "slice_f2": {
+                          "viz": {k: viz[k] for k in
+                                  ("sweeps", "fits", "plots")},
+                          "turntable_frac_pixels_off":
+                              viz["turntable"]["frac_pixels_off"],
+                          "roofline": roofline, "serve_bench": serve_bench,
+                          "probe": {k: v for k, v in probe.items()
+                                    if k != "k4_row"}},
                       "slice_d": {"lm": lm, "gd": gd,
                                   "corrector": corrector, "fit": fits,
                                   "c4r1_identity_rel": c4r1["identity_rel"]},

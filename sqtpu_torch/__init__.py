@@ -16,8 +16,12 @@ axis through K6, the implicit loss on a column slab; the sensor-noise
 protocol (:mod:`sqtpu_torch.data.augment`, the filters of
 :mod:`sqtpu_torch.ops.image`), directory datasets and the bulk entry
 points (:mod:`sqtpu_torch.predict`, :mod:`sqtpu_torch.generate`,
-:mod:`sqtpu_torch.scan`, ``evaluate single``). See ROADMAP.md for the
-slices still to port.
+:mod:`sqtpu_torch.scan`, ``evaluate single``); classical fitting and
+refinement (:mod:`sqtpu_torch.fit`), every model and option of the JAX
+package's configs, and the diagnostics and tools (:mod:`sqtpu_torch.viz`,
+:mod:`sqtpu_torch.tools`). Every function of ``sqtpu`` has a counterpart
+but for renames and its JAX-only sharding and cache code; ROADMAP.md says
+what stays open.
 """
 
 __version__ = "0.1.0"

@@ -19,7 +19,9 @@ package ``vmap``s a per-sample solve: the (B, n², 12) Jacobian comes from
 equations from one batched ``torch.linalg.solve``, and the accept/reject
 choice and λ are (B,) tensors. The ``gd`` refinement and :func:`gd_fit`
 take their losses through the kernel dispatch: the implicit loss is K1/K2
-on the card, the explicit loss K4; the plain losses on the CPU.
+on the card, the explicit loss K4 (:func:`gd_fit` over the full lattice,
+the ``gd`` refinement on each sample's z-window); the plain losses on the
+CPU.
 
 Usage::
 
@@ -72,6 +74,18 @@ def _renorm_quat(p: torch.Tensor) -> torch.Tensor:
 # Gradient descent (torch/visu.py:123-209)
 # ---------------------------------------------------------------------------
 
+def adam_update(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, k: int,
+                lr: float):
+    """optax.adam's update at step ``k`` (from 1) for the gradient ``g``
+    and the moments ``m``, ``v``, in its order of operations. Returns
+    (the update to add, m, v)."""
+    m = (1.0 - ADAM_B1) * g + ADAM_B1 * m
+    v = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * v
+    m_hat = m / (1.0 - ADAM_B1 ** k)
+    v_hat = v / (1.0 - ADAM_B2 ** k)
+    return (m_hat / (torch.sqrt(v_hat) + ADAM_EPS)) * -lr, m, v
+
+
 def _fit_scan(p0: torch.Tensor, loss_fn, steps: int, lr: float,
               optimizer: str):
     """``steps`` updates of ``p0`` (B, 12) on ``loss_fn`` (a scalar whose
@@ -92,12 +106,8 @@ def _fit_scan(p0: torch.Tensor, loss_fn, steps: int, lr: float,
             p = p.detach()
             hist.append(loss.detach())
             if optimizer == "adam":
-                m = (1.0 - ADAM_B1) * g + ADAM_B1 * m
-                v = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * v
-                m_hat = m / (1.0 - ADAM_B1 ** k)
-                v_hat = v / (1.0 - ADAM_B2 ** k)
-                p = _renorm_quat(
-                    p + (m_hat / (torch.sqrt(v_hat) + ADAM_EPS)) * -lr)
+                upd, m, v = adam_update(g, m, v, k, lr)
+                p = _renorm_quat(p + upd)
             else:
                 p = _renorm_quat(p - lr * g)
     return p, torch.stack(hist) if hist else p.new_zeros(0)
@@ -106,14 +116,18 @@ def _fit_scan(p0: torch.Tensor, loss_fn, steps: int, lr: float,
 def _loss_closure(cfg: FitConfig, target_params=None, target_image=None):
     """The fit's loss of one (1, 12) estimate against its target: the
     explicit loss (K4 on the card), the implicit loss (K1/K2 on the
-    card) or the least-squares energy (plain)."""
+    card) or the least-squares energy (plain). The kernels sweep the full
+    lattice: the JAX package's fit calls the plain losses
+    (``sqtpu/fit.py:42,46``), and a z-window drops their tails."""
     if cfg.loss == "explicit":
         tp = target_params[None]
-        return lambda p: explicit_loss_auto(tp, p, cfg.render_size)
+        return lambda p: explicit_loss_auto(tp, p, cfg.render_size,
+                                            z_window=False)
     if cfg.loss == "implicit":
         ti = target_image[None]
         return lambda p: implicit_loss_auto(ti, p, cfg.render_size, cfg.tau,
-                                            cfg.sigmoid_sharpness)
+                                            cfg.sigmoid_sharpness,
+                                            z_window=False)
     if cfg.loss == "leastsquares":
         ti = target_image[None]
         return lambda p: losses.least_squares_loss(ti, p, cfg.render_size)

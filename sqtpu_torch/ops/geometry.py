@@ -1,7 +1,7 @@
 """Superquadric geometry in PyTorch: parameter layout, grids, and the
 inside-outside field.
 
-Counterpart of ``sqtpu/ops/geometry.py`` (:54-190, :268-276, :333-352,
+Counterpart of ``sqtpu/ops/geometry.py`` (:54-330, :333-352,
 :356-412). Every
 function works on the canonical 12-vector
 ``[a1,a2,a3, e1,e2, t1,t2,t3, qx,qy,qz,qw]`` (normalized units: a, t in
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from sqtpu_torch.ops import quaternion as quat
@@ -159,6 +160,122 @@ def field_points(points: torch.Tensor, p: torch.Tensor, *,
     sq = [((rp[..., i] - s(tr[..., i])) / s(a[..., i])) ** 2
           for i in range(3)]
     return _power_chain(*sq, s(e[..., 0]), s(e[..., 1]), guard=guard)
+
+
+def _spow(base: torch.Tensor, expo) -> torch.Tensor:
+    """Signed power sgn(x)·|x|^e (the scanner's ``spow``); 0 at 0."""
+    return torch.sign(base) * torch.pow(torch.abs(base), expo)
+
+
+def surface_point(p: torch.Tensor, eta: torch.Tensor, omega: torch.Tensor,
+                  frame: str = "world") -> torch.Tensor:
+    """The closed-form surface point r(η, ω) of one superquadric ``p``
+    (12,) (the scanner's ``sq::r``): x = a1·cos^e1(η)·cos^e2(ω),
+    y = a2·cos^e1(η)·sin^e2(ω), z = a3·sin^e1(η), signed powers, over the
+    broadcast shape of ``eta`` and ``omega`` -> (..., 3); ``frame="body"``
+    leaves it unposed."""
+    a, e, t, q = split_params(p)
+    ce1 = _spow(torch.cos(eta), e[0])
+    x = a[0] * ce1 * _spow(torch.cos(omega), e[1])
+    y = a[1] * ce1 * _spow(torch.sin(omega), e[1])
+    z = a[2] * _spow(torch.sin(eta), e[0]) * torch.ones_like(x)
+    pts = torch.stack([x, y, z], dim=-1)
+    if frame == "body":
+        return pts
+    return quat.rotate(pts.reshape(-1, 3), q[None, :]).reshape(pts.shape) \
+        + t
+
+
+def surface_normal(p: torch.Tensor, eta: torch.Tensor, omega: torch.Tensor,
+                   frame: str = "world") -> torch.Tensor:
+    """The closed-form outward unit normal n(η, ω) (the scanner's
+    ``sq::normal``): ∝ [cos^(2−e1)(η)·cos^(2−e2)(ω)/a1,
+    cos^(2−e1)(η)·sin^(2−e2)(ω)/a2, sin^(2−e1)(η)/a3], signed powers;
+    parallel to ∇F at :func:`surface_point`."""
+    a, e, t, q = split_params(p)
+    ce = _spow(torch.cos(eta), 2.0 - e[0])
+    nx = ce * _spow(torch.cos(omega), 2.0 - e[1]) / a[0]
+    ny = ce * _spow(torch.sin(omega), 2.0 - e[1]) / a[1]
+    nz = _spow(torch.sin(eta), 2.0 - e[0]) / a[2] * torch.ones_like(nx)
+    n = torch.stack([nx, ny, nz], dim=-1)
+    n = n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+    if frame == "body":
+        return n
+    return quat.rotate(n.reshape(-1, 3), q[None, :]).reshape(n.shape)
+
+
+def map_eta_omega(points: torch.Tensor, p: torch.Tensor):
+    """The inverse parameterization (the scanner's ``sq::map_eta`` and
+    ``map_omega``): world points (..., 3) -> (η, ω) of the surface point
+    on the same ray from the center; η from the x or the y branch,
+    whichever |cos ω| or |sin ω| conditions better."""
+    a, e, t, q = split_params(p)
+    body = quat.rotate(points.reshape(-1, 3) - t[None, :],
+                       quat.conjugate(q)[None, :]).reshape(points.shape)
+    x, y, z = body[..., 0] / a[0], body[..., 1] / a[1], body[..., 2] / a[2]
+    omega = torch.atan2(_spow(y, 1.0 / e[1]), _spow(x, 1.0 / e[1]))
+    cw, sw = torch.cos(omega), torch.sin(omega)
+    one = torch.ones_like(cw)
+    ce1 = torch.where(torch.abs(cw) > torch.abs(sw),
+                      x / torch.where(cw == 0, one, _spow(cw, e[1])),
+                      y / torch.where(sw == 0, one, _spow(sw, e[1])))
+    eta = torch.atan2(_spow(z, 1.0 / e[0]), _spow(ce1, 1.0 / e[0]))
+    return eta, omega
+
+
+def surface_angles(n_theta: int, n_gamma: int, dtype=torch.float32,
+                   device=None):
+    """The angles of :func:`sample_surface`: ``arange(-π, π, 2π/n_theta)``
+    and ``arange(-π/2, π/2, π/n_gamma)`` in ``dtype``, formed by numpy: its
+    values and its count (n + 1 at some n, 61 among them) are the JAX
+    package's to the bit, and ``torch.arange``'s are not."""
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    theta = np.arange(-np.pi, np.pi, 2 * np.pi / n_theta, dtype=np_dtype)
+    gamma = np.arange(-np.pi / 2, np.pi / 2, np.pi / n_gamma, dtype=np_dtype)
+    return (torch.from_numpy(theta).to(device),
+            torch.from_numpy(gamma).to(device))
+
+
+def sample_surface(p: torch.Tensor, n_theta: int = 64, n_gamma: int = 32,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Closed-form surface samples of one superquadric ``p`` (12,), posed
+    in the world frame -> (T·G, 3) (``sqtpu/ops/geometry.py:279``), over
+    the grid of :func:`surface_angles`."""
+    a, e, t, q = split_params(p)
+    theta, gamma = surface_angles(n_theta, n_gamma, dtype, p.device)
+    ct, st = torch.cos(theta)[:, None], torch.sin(theta)[:, None]
+    cg, sg = torch.cos(gamma)[None, :], torch.sin(gamma)[None, :]
+    # the JAX package promotes the angles' dtype to the params' where
+    # they meet them; a 0-dim tensor does not promote in torch
+    res = torch.promote_types(p.dtype, dtype)
+    sx, sy = torch.sign(cg * ct).to(res), torch.sign(cg * st).to(res)
+    ct, st, cg, sg = (v.to(res) for v in (ct, st, cg, sg))
+    x = a[0] * sx * torch.abs(cg) ** e[0] * torch.abs(ct) ** e[1]
+    y = a[1] * sy * torch.abs(cg) ** e[0] * torch.abs(st) ** e[1]
+    z = a[2] * _spow(sg, e[0]) * torch.ones_like(ct)
+    pts = torch.stack([x, y, z], dim=-1).reshape(-1, 3)
+    return quat.rotate(pts, q[None, :]) + t[None, :]
+
+
+def pose_matrix(p: torch.Tensor) -> torch.Tensor:
+    """The 4x4 homogeneous world-from-superquadric transform of (..., 12)
+    params (the scanner's ``hmatrix``): R(q) and t."""
+    _, _, t, q = split_params(p)
+    m = torch.zeros(p.shape[:-1] + (4, 4), dtype=p.dtype, device=p.device)
+    m[..., :3, :3] = quat.to_matrix(q)
+    m[..., :3, 3] = t
+    m[..., 3, 3] = 1.0
+    return m
+
+
+def pose_inverse(m: torch.Tensor) -> torch.Tensor:
+    """The inverse of rigid 4x4 transforms (..., 4, 4): Rᵀ and −Rᵀt."""
+    rt = m[..., :3, :3].transpose(-1, -2)
+    out = torch.zeros_like(m)
+    out[..., :3, :3] = rt
+    out[..., :3, 3] = -torch.einsum("...ij,...j->...i", rt, m[..., :3, 3])
+    out[..., 3, 3] = 1.0
+    return out
 
 
 def signed_distance(points: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

@@ -499,28 +499,30 @@ def _check_inputs(img: torch.Tensor, pred_p: torch.Tensor, n: int) -> None:
 
 
 def _sweep_loss(impl: _Impl, img, pred_p, n, tau, sharpness, z_window,
-                z_margin):
+                z_margin, reduce=True):
     img_xy = image_plane(img, n, pred_p.dtype)
     par = pack_params(pred_p, n, z_window, z_margin)
     sums = _ImplicitCore.apply(img_xy, par, n, n, float(tau),
                                float(sharpness), impl)
-    return torch.mean(sums) / (n * n)
+    return torch.mean(sums) / (n * n) if reduce else sums / (n * n)
 
 
 def implicit_loss_cuda(img: torch.Tensor, pred_p: torch.Tensor,
                        render_size: int = 64, tau: float = 1.5,
                        sharpness: float = 260.0, z_window: bool = True,
-                       z_margin: float = Z_MARGIN) -> torch.Tensor:
+                       z_margin: float = Z_MARGIN,
+                       reduce: bool = True) -> torch.Tensor:
     """The implicit loss through K1 (forward) and K2 (backward) for a
     CUDA float32 ``pred_p``; the plain :func:`sqtpu_torch.ops.losses
     .implicit_loss` for a CPU tensor. ``z_window=True`` sweeps only each
     sample's z-support window ± ``z_margin`` (the out-of-window
     transmittance is closed form); ``z_window=False`` sweeps all n planes.
-    On a CUDA tensor it launches the kernels or raises."""
+    ``reduce=False`` gives the (B,) per-sample losses. On a CUDA tensor it
+    launches the kernels or raises."""
     _check_inputs(img, pred_p, render_size)
     if pred_p.device.type == "cpu":
         return losses.implicit_loss(img, pred_p, render_size, tau,
-                                    sharpness)
+                                    sharpness, reduce)
     if pred_p.device.type != "cuda":
         raise ValueError(f"no kernel for device {pred_p.device}")
     if pred_p.dtype != torch.float32:
@@ -530,18 +532,19 @@ def implicit_loss_cuda(img: torch.Tensor, pred_p: torch.Tensor,
         raise ValueError(f"images on {img.device}, params on "
                          f"{pred_p.device}")
     return _sweep_loss(CUDA, img, pred_p, render_size, tau, sharpness,
-                       z_window, z_margin)
+                       z_window, z_margin, reduce)
 
 
 def implicit_loss_emulated(img: torch.Tensor, pred_p: torch.Tensor,
                            render_size: int = 64, tau: float = 1.5,
                            sharpness: float = 260.0, z_window: bool = True,
-                           z_margin: float = Z_MARGIN) -> torch.Tensor:
+                           z_margin: float = Z_MARGIN,
+                           reduce: bool = True) -> torch.Tensor:
     """The same loss through the torch emulation of K1 and K2, on any
     device, in ``pred_p``'s floating dtype."""
     _check_inputs(img, pred_p, render_size)
     return _sweep_loss(EMULATION, img, pred_p, render_size, tau, sharpness,
-                       z_window, z_margin)
+                       z_window, z_margin, reduce)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 Counterpart of ``sqtpu/ops/quaternion.py``: the same conventions (Hamilton
 product, w last, ``to_matrix(q) @ p`` rotates ``p`` by ``q``), dtype
 preserving and broadcasting over leading batch dimensions. Only the
-functions the port's paths need are here.
+functions the port's paths need are here, ``slerp`` and the angle
+conversions of the diagnostics among them.
 """
 
 from __future__ import annotations
@@ -91,6 +92,50 @@ def to_magnitude(q: torch.Tensor) -> torch.Tensor:
     """Rotation angle of q: 2·atan2(‖xyz‖, w)."""
     return 2.0 * torch.atan2(torch.linalg.vector_norm(q[..., :3], dim=-1),
                              q[..., 3])
+
+
+def to_axis_angle(q: torch.Tensor) -> torch.Tensor:
+    """(x, y, z, angle): the rotation's axis scaled by 1/sin(acos w + 1e-8)
+    and its angle 2·(acos w + 1e-8) (``sqtpu/ops/quaternion.py:121``)."""
+    xyz, w = q[..., :3], q[..., 3:]
+    w_acos = torch.acos(torch.clamp(w, -1.0, 1.0)) + 1e-8
+    return torch.cat([xyz / torch.sin(w_acos), 2.0 * w_acos], dim=-1)
+
+
+def to_euler(q: torch.Tensor) -> torch.Tensor:
+    """(phi, theta, gamma) in the reference's convention
+    (``sqtpu/ops/quaternion.py:135``), its quirk kept: theta is
+    acos(−|q|²), constantly π for a unit quaternion."""
+    qi, qj, qk, qr = q.unbind(-1)
+    phi = torch.atan2(qi * qk + qj * qr, -(qj * qk - qi * qr))
+    theta = torch.acos(torch.clamp(-(qi ** 2) - qj ** 2 - qk ** 2 - qr ** 2,
+                                   -1.0, 1.0))
+    gamma = torch.atan2(qi * qk - qj * qr, qj * qk + qi * qr)
+    return torch.stack([phi, theta, gamma], dim=-1)
+
+
+def slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
+    """Spherical linear interpolation from ``q0`` to ``q1`` at the
+    fractions ``t`` -> ``t.shape + (4,)``, branch free as the JAX package's
+    (``sqtpu/ops/quaternion.py:173``): ``q1`` flipped to the hemisphere of
+    ``q0``, a safe divisor where sin θ0 vanishes, and the normalized lerp
+    where the dot exceeds 0.9995."""
+    t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)
+    dot = torch.sum(q0 * q1, dim=-1)
+    q1 = torch.where(dot < 0.0, -q1, q1)
+    dot = torch.abs(dot)
+    dot_c = torch.clamp(dot, -1.0, 1.0)
+    theta0 = torch.acos(dot_c)
+    sin_theta0 = torch.sin(theta0)
+    theta = theta0 * t[..., None]
+    # the safe divisor's result is discarded where it applies
+    safe_sin = torch.where(sin_theta0 > 1e-6, sin_theta0,
+                           torch.ones_like(sin_theta0))
+    s0 = torch.cos(theta) - dot_c * torch.sin(theta) / safe_sin
+    s1 = torch.sin(theta) / safe_sin
+    slerped = s0 * q0 + s1 * q1
+    lerped = normalize(q0 + t[..., None] * (q1 - q0))
+    return torch.where(dot > 0.9995, lerped, slerped)
 
 
 def random_uniform(shape: tuple, generator: torch.Generator,

@@ -36,7 +36,11 @@ robust recipe's shape, N=64 and sharpness 5, and at the keras_rot_fixed
 recipe's, N=32 and sharpness 5; one bf16 ssl step (flax's ``dtype``)
 runs its convolutions in bf16 through K1/K2, its gaps to the fp32 step
 within twice the JAX package's own on the same inputs, and a Keras net in
-bf16 trains and validates through K4/K5. The depth-map filters run on
+bf16 trains and validates through K4/K5. Slice F2's settings: K5 and K1
+over the full sweep at the slerp sweep's B=200, N=32, per sample against
+the plain loss in float64 (relative 1e-5), and K4 over the full sweep at
+the fit's B=1 and the probe's B=4, N=32 (the c3r tolerances, full
+sweep); K1 per sample (``reduce=False``). The depth-map filters run on
 the card and give the CPU's bits. The card's K3 and its torch emulation round differently (the
 kernel fuses multiply-adds): on 125 recorded truths 9 and 17 of 8.2 M
 pixels are one gray level apart at (64, 16) and (48, 12), none more.
@@ -813,3 +817,90 @@ def test_step_timer_and_memory_stats_on_card(cuda_device):
     assert set(stats) == {f"cuda:{i}"
                           for i in range(torch.cuda.device_count())}
     assert stats["cuda:0"]["allocated_bytes.all.current"] >= x.numel() * 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", ["explicit", "implicit"])
+def test_slerp_sweep_kernels_on_card(cuda_device, loss):
+    """``viz.sweep_numbers`` at n=200, N=32 on the card: one K5 (explicit)
+    or K1 (implicit) launch over the full sweep; each sample's loss within
+    1e-5 relative of the plain loss in float64 on the CPU on the same
+    batch."""
+    from sqtpu_torch import viz
+    from sqtpu_torch.ops import geometry
+    from sqtpu_torch.ops import quaternion as quat
+    from sqtpu_torch.ops.render import render_depth_soft
+
+    rng = np.random.default_rng(90)
+    base = torch.from_numpy(_params(rng, 1)[0]).to(cuda_device)
+    q0 = torch.tensor([0.0, 0.0, 0.0, 1.0], device=cuda_device)
+    q1 = torch.from_numpy(_params(rng, 1)[0, 8:]).to(cuda_device)
+    KE.reset_launches()
+    K.reset_launches()
+    _, ls, _ = viz.sweep_numbers(base, q0, q1, loss, 200, 32)
+    torch.cuda.synchronize()
+    assert (KE.fwd_launches, K.fwd_launches) == (
+        (1, 0) if loss == "explicit" else (0, 1))
+    qs = quat.slerp(q0, q1, geometry.make_axis(200, "iou",
+                                               device=cuda_device))
+    true = base.double().cpu()[None].expand(200, -1)
+    pred = torch.cat([true[:, :8], qs.double().cpu()], dim=-1)
+    if loss == "explicit":
+        ref = tlosses.explicit_loss(true, pred, 32, reduce=False)
+    else:
+        img = render_depth_soft(base, 32).double().cpu()
+        ref = tlosses.implicit_loss(img.expand(200, -1, -1), pred, 32,
+                                    reduce=False)
+    np.testing.assert_allclose(ls.double().cpu().numpy(), ref.numpy(),
+                               rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 4])
+def test_explicit_kernels_at_the_fit_and_probe_settings_on_card(cuda_device,
+                                                                b):
+    """K4 over the full sweep at N=32, sharpness 5: the fit's B=1 (one K4
+    launch a step of ``gd_fit``) and the probe's B=4, against the
+    emulation and the plain loss with the full sweep's tolerances; K5's
+    sums are K4's bit for bit."""
+    true, pred = _explicit_batch(91, b)
+    kw = {"z_window": False, "sharp": 5.0}
+    KE.reset_launches()
+    got = _explicit_value_and_grad(KE.explicit_loss_cuda, true, pred, 32,
+                                   cuda_device, **kw)
+    assert (KE.fused_launches, KE.fwd_launches) == (1, 0)
+    for ref in (_explicit_value_and_grad(KE.explicit_loss_emulated, true,
+                                         pred, 32, cuda_device, **kw),
+                _explicit_value_and_grad(
+                    lambda t, p, n, **_: tlosses.explicit_loss(t, p, n),
+                    true, pred, 32, cuda_device)):
+        assert got[0] == pytest.approx(ref[0], rel=1e-5)
+        np.testing.assert_allclose(got[1], ref[1], rtol=5e-3, atol=1e-6)
+    t, p = (torch.tensor(x, device=cuda_device) for x in (true, pred))
+    par_t, par_p = KE.pack_params(t, p, 32, False, KE.default_margin(5.0))
+    k4, _ = KE.cuda_fused(par_t, par_p, 32, 5.0)
+    assert torch.equal(KE.cuda_fwd(par_t, par_p, 32, 5.0), k4)
+
+
+@pytest.mark.gpu
+def test_implicit_kernels_per_sample_full_sweep_on_card(cuda_device):
+    """K1 with ``reduce=False`` over the full sweep at N=32 (the slerp
+    sweep's implicit loss): each sample against the emulation and the
+    plain loss, relative 1e-5; the mean is the reduced loss's."""
+    rng = np.random.default_rng(92)
+    truth = torch.from_numpy(_params(rng, 16)).to(cuda_device)
+    imgs = render_hard_auto(truth, 256, n_sweep=64, n_bisect=16)
+    pred = truth + torch.from_numpy(rng.normal(
+        scale=0.02, size=(16, 12)).astype(np.float32)).to(cuda_device)
+    with torch.no_grad():
+        got = K.implicit_loss_cuda(imgs, pred, 32, z_window=False,
+                                   reduce=False)
+        emu = K.implicit_loss_emulated(imgs, pred, 32, z_window=False,
+                                       reduce=False)
+        plain = tlosses.implicit_loss(imgs, pred, 32, reduce=False)
+        mean = K.implicit_loss_cuda(imgs, pred, 32, z_window=False)
+    assert got.shape == (16,)
+    for ref in (emu, plain):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=1e-5)
+    assert float(mean) == pytest.approx(float(got.mean()), rel=1e-6)

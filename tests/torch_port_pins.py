@@ -11,6 +11,7 @@ test suite, run from the repository root::
     python tests/torch_port_pins.py fit         # phase 28
     python tests/torch_port_pins.py bf16        # phase 29
     python tests/torch_port_pins.py bf16_step   # phase 29, card tests
+    python tests/torch_port_pins.py probe       # phase 36
 
 Each prints one JSON line per result. The truths are the 1000 recorded in
 ``runs/eval_c4c3/accs.npz``; their images are rendered by the JAX
@@ -26,7 +27,11 @@ at the training setting (48 slabs, 12 bisections), phase 9's number with
 the model's ``dtype`` bfloat16. ``bf16_step`` is the bfloat16-against-
 float32 gaps of one train step in both packages on the same inputs
 (:func:`bf16_step_gaps`): phase 29's step and
-``tests/test_torch_port_gpu.py::test_bf16_step_on_card``'s.
+``tests/test_torch_port_gpu.py::test_bf16_step_on_card``'s. ``probe``
+is the JAX package's ``tools/probe_keras2019.py`` run at phase 36's
+setting (PROBE_*), with its own truths and starts: it writes them, the
+losses of the first 10 steps, the non-finite-gradient flags and the final
+IoUs to PROBE_PINS, which phase 36 feeds the port's descent.
 """
 
 from __future__ import annotations
@@ -371,6 +376,87 @@ def bf16_step_gaps(case: str, runs: int = SPREAD_RUNS) -> dict:
             "jax_spread": spread, "port_cpu": bf16_gaps(port_runs)}
 
 
+PROBE_PINS = os.path.join(ROOT, "tests", "torch_port_probe_pins.json")
+PROBE_ROTS = (0.35, 1.57)
+PROBE_LOSSES = ("keras_raw", "keras_clip=100", "keras_clip=2", "explicit2020")
+PROBE_LR, PROBE_SEEDS, PROBE_STEPS = 3e-3, 4, 300
+
+
+def jax_probe_tool():
+    """The JAX package's ``tools/probe_keras2019.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_probe_keras2019",
+        os.path.join(ROOT, "tools", "probe_keras2019.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def jax_probe_run(loss_name: str, lr: float, steps: int, seeds: int,
+                  rot_rad: float) -> dict:
+    """``run_config`` of the JAX tool (its draws from PRNGKey(7), its
+    loop), returning the truths, starts and every step's losses too."""
+    import optax
+
+    from sqtpu.data.synthetic import sample_params
+
+    jp = jax_probe_tool()
+    loss_fn = jp.make_loss(loss_name)
+
+    def fit_one(key):
+        kp, ki = jax.random.split(key)
+        truth = sample_params(kp, 1, canonical=False)[0]
+        p0 = jp.perturb(ki, truth, rot_rad)
+        opt = optax.adam(lr)
+
+        def step(carry, _):
+            p, ostate = carry
+            g = jax.grad(lambda pp: loss_fn(truth, pp))(p)
+            g = jnp.where(jnp.isfinite(g), g, 0.0)
+            upd, ostate = opt.update(g, ostate, p)
+            p = p + upd
+            p = p.at[8:12].set(p[8:12] / jnp.linalg.norm(p[8:12]))
+            return (p, ostate), (loss_fn(truth, p),
+                                 jnp.any(~jnp.isfinite(g)))
+        (pf, _), (ls, nang) = jax.lax.scan(
+            step, (p0, opt.init(p0)), None, length=steps)
+        return truth, p0, pf, ls, nang
+
+    keys = jax.random.split(jax.random.PRNGKey(7), seeds)
+    truth, p0, pf, ls, nang = jax.jit(jax.vmap(fit_one))(keys)
+    iouf = metrics.iou(truth, pf, 64, reduce=False)
+    return {"truth": np.asarray(truth).tolist(),
+            "p0": np.asarray(p0).tolist(),
+            "losses_first_10": np.asarray(ls[:, :10]).tolist(),
+            "any_nan_grad": [bool(x) for x in np.asarray(nang).any(1)],
+            "final_iou": np.asarray(iouf).tolist(),
+            "mean_final_iou": float(np.mean(np.asarray(iouf)))}
+
+
+def pin_probe() -> None:
+    """Phase 36: the JAX tool at each rotation and loss of PROBE_*, written
+    to PROBE_PINS (the truths and starts once per rotation)."""
+    out = {"lr": PROBE_LR, "seeds": PROBE_SEEDS, "steps": PROBE_STEPS,
+           "rots": {}}
+    for rot in PROBE_ROTS:
+        t0 = time.time()
+        runs = {name: jax_probe_run(name, PROBE_LR, PROBE_STEPS,
+                                    PROBE_SEEDS, rot)
+                for name in PROBE_LOSSES}
+        first = runs[PROBE_LOSSES[0]]
+        out["rots"][str(rot)] = {
+            "truth": first["truth"], "p0": first["p0"],
+            "losses": {k: {kk: v[kk] for kk in v if kk not in
+                           ("truth", "p0")} for k, v in runs.items()}}
+        emit(f"probe rot {rot}", t0, **{
+            k: v["mean_final_iou"] for k, v in runs.items()})
+    with open(PROBE_PINS, "w") as f:
+        json.dump(out, f)
+        f.write("\n")
+
+
 def pin_bf16_step() -> None:
     """The JAX package's own bf16-against-fp32 step gaps that the card's
     are held to: phase 29's (``ssl``) and ``test_bf16_step_on_card``'s
@@ -394,5 +480,7 @@ if __name__ == "__main__":
         pin_bf16()
     elif what == "bf16_step":
         pin_bf16_step()
+    elif what == "probe":
+        pin_probe()
     else:
         raise SystemExit(f"unknown pin {what!r}")
