@@ -57,8 +57,9 @@ user calls:
   package's float32 numbers on the CPU (pinned, with the script that
   computed them) and above the margins a fault could not pass, and
   ``eval_random`` with ``--model classical`` and ``--refine lm``; c4 +
-  ``--refine gd`` and ``lm+gd`` through K1/K2 on the first 125 truths,
-  and K1/K2 at that setting against their emulation and the plain loss;
+  ``--refine gd`` and ``lm+gd`` through K1/K2 (the full sweep) on the
+  first 125 truths, and K1/K2 at that setting against their emulation
+  and the plain loss;
   ``--model refine_sq`` on the c4r1 artifact (K3 three times a batch)
   against ``runs/eval_c4r1``, and + LM; one c4r1-recipe step on the card
   against the CPU's (with the CPU's own in-loop renders, and with the
@@ -99,11 +100,21 @@ user calls:
   clients x 25 requests, the first answers against the in-process
   model); the 2019-landscape probe's descent fed the JAX tool's truths and
   starts (``tests/torch_port_probe_pins.json``), and README's finding at
-  1.57 rad.
+  1.57 rad;
+* the bench (phase 37): ``sqtpu_torch.bench.measure`` at its defaults (the
+  counterpart of the JAX package's ``bench.py``: batch 512, 10 timed
+  steps of each of its nine measurements), its line's keys against
+  ``bench.py``'s, each kernel's launches against what the bench's code
+  implies, K4 at N = 96 and 128 (sharpness 5, and 20 from the bf16
+  encoder) and K1/K2 at N = 128 on the bench's own first-step
+  predictions and on its labels plus noise against their emulations and
+  plain versions, and the
+  sequence-parallel pair's first-step losses (K1/K2 and the plain loss)
+  against each other.
 
 One flushed progress line per phase, with the elapsed seconds; no failure
-is caught. The last lines are one JSON object with the train steps'
-splits, the trainers' rates and run-to-run gaps, the card (``nvidia-smi`` name and power limit), one JSON object
+is caught. The bench prints its JSON line among them. The last lines
+are one JSON object with the train steps' splits, the trainers' rates and run-to-run gaps, the card (``nvidia-smi`` name and power limit), one JSON object
 with each kernel's numbers, and ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when torch sees no CUDA device or
@@ -653,12 +664,14 @@ def implicit_inputs(dev, seed: int):
     return truths, k3_imgs, pred, noise_imgs
 
 
-def implicit_times(k3_imgs, pred, n: int, z_window: bool = True) -> list:
+def implicit_times(k3_imgs, pred, n: int, z_window: bool = True,
+                   plain_runs: int = TIMING_RUNS, emu_runs: int = 5) -> list:
     """K1's and K2's times on ``pred`` (B, 12) against the images
     ``k3_imgs`` at render size ``n`` (windowed or the full sweep, τ and
     sharpness of the training path), the plain and emulated forward +
-    backward, and the bounds: the points after the exact-zero cull at the
-    redesigned kernels' operations, the window's at the first port's."""
+    backward (medians of ``plain_runs`` and ``emu_runs`` calls), and the
+    bounds: the points after the exact-zero cull at the redesigned
+    kernels' operations, the window's at the first port's."""
     import torch
 
     from sqtpu_torch.ops import losses
@@ -683,8 +696,8 @@ def implicit_times(k3_imgs, pred, n: int, z_window: bool = True) -> list:
         K.implicit_loss_emulated(k3_imgs, p, n, TAU, SHARP,
                                  z_window).backward()
 
-    plain_ms = cuda_ms(plain_fwd_bwd)
-    emu_ms = cuda_ms(emu_fwd_bwd, runs=5)
+    plain_ms = cuda_ms(plain_fwd_bwd, runs=plain_runs)
+    emu_ms = cuda_ms(emu_fwd_bwd, runs=emu_runs)
     points = K.window_points(par, n, n)
     plane_bytes = b * n * n * 4
     par_bytes = b * K.PAR_STRIDE * 4
@@ -1045,10 +1058,12 @@ def explicit_inputs(dev):
 
 
 def explicit_times(truths, pred, n: int, sharp: float,
-                   z_window: bool = True) -> list:
+                   z_window: bool = True, plain_runs: int = TIMING_RUNS,
+                   emu_runs: int = TIMING_RUNS) -> list:
     """K4's and K5's times on ``pred`` against ``truths`` (B, 12) at the
     (N+1)³ lattice and ``sharp`` (windowed or the full sweep), the plain
-    and emulated versions, and the bounds
+    and emulated versions (medians of ``plain_runs`` and ``emu_runs``
+    calls; the emulation's time None with no runs), and the bounds
     (:func:`sqtpu_torch.ops.kernels.bounds.explicit_bounds`): the points
     after the exact-zero cull at the redesigned kernels' operations, the
     window's at the first port's."""
@@ -1060,11 +1075,12 @@ def explicit_times(truths, pred, n: int, sharp: float,
                                   KE.default_margin(sharp))
     fused_ms = cuda_ms(lambda: KE.cuda_fused(par_t, par_p, n, sharp))
     fwd_ms = cuda_ms(lambda: KE.cuda_fwd(par_t, par_p, n, sharp))
-    emu_ms = cuda_ms(lambda: KE.emulate_fused(par_t, par_p, n, sharp))
+    emu_ms = (cuda_ms(lambda: KE.emulate_fused(par_t, par_p, n, sharp),
+                      runs=emu_runs) if emu_runs else None)
     plain_bwd_ms = cuda_ms(lambda: plain_explicit(truths, pred, n, sharp,
-                                                  True))
+                                                  True), runs=plain_runs)
     plain_fwd_ms = cuda_ms(lambda: plain_explicit(truths, pred, n, sharp,
-                                                  False))
+                                                  False), runs=plain_runs)
     bounds = B.explicit_bounds(par_t, par_p, n, sharp)
     rows = []
     for name, ms, plain_ms in (("K4", fused_ms, plain_bwd_ms),
@@ -2511,11 +2527,12 @@ def phase_gd(truths, dev, eval_cfg) -> tuple[dict, dict]:
     """c4, c4 + gd and c4 + lm+gd on the first BATCH recorded truths,
     held within IOU_TOL of the JAX package's CPU numbers, gd's and
     lm+gd's rot-IoU at least GD_ROT_GAIN above c4's; K1 and K2 launched
-    once per Adam step. Then K1/K2 at the refinement's setting against
-    their emulation and the plain loss, on the estimates the refinement
-    starts from (c4's; the LM's for lm+gd) and on gd's result, at BATCH
-    rows and at the JAX package's kernel-test batch of 4; times and
-    bounds."""
+    once per Adam step. Then K1/K2 at the refinement's setting, over the
+    full sweep as the refinement runs them (the JAX package differentiates
+    the plain loss, sqtpu/fit.py:332), against their emulation and the
+    plain loss, on the estimates the refinement starts from (c4's; the
+    LM's for lm+gd) and on gd's result, at BATCH rows and at the JAX
+    package's kernel-test batch of 4; times and bounds."""
     import dataclasses
 
     import torch
@@ -2558,9 +2575,10 @@ def phase_gd(truths, dev, eval_cfg) -> tuple[dict, dict]:
                            ("gd's result", gd_pred)):
         for rows in (BATCH, 4):
             got = implicit_vs_refs(f"K1/K2 at the gd setting on {start}",
-                                   imgs[:rows], p_start[:rows], LOSS_N)
+                                   imgs[:rows], p_start[:rows], LOSS_N,
+                                   z_window=False)
             worst = {k: max(worst[k], got[k]) for k in worst}
-    rows = implicit_times(imgs, pred, LOSS_N)
+    rows = implicit_times(imgs, pred, LOSS_N, z_window=False)
     for row in rows:
         row["max_abs_err"] = worst["grad"]
         row["max_rel_err_value"] = worst["value"]
@@ -3931,6 +3949,190 @@ def phase_probe(dev) -> dict:
     return out
 
 
+# Phase 37: the port's bench (python -m sqtpu_torch.bench) at its defaults.
+# The kernels are held at the bench's settings on two inputs: its first-step
+# predictions (a fresh net's, which fill the view) and the resident batch's
+# labels plus BENCH_NOISE (shapes near the truth, as the card tests'). The
+# plain losses run on the first BENCH_CHECK_ROWS rows (each kernel computes
+# per sample, so a row subset is the same function); the kernels' times at
+# the bench's full batch against the plain versions' (medians of
+# BENCH_PLAIN_RUNS: the helpers' 20 runs of K4's and K5's plain versions
+# at B=512, N=128, 0.7 s and 0.3 s a call, would add over 30 s).
+BENCH_CHECK_ROWS = 32
+BENCH_PLAIN_RUNS = 3
+BENCH_NOISE = 0.02
+# explicit96 and explicit128: TrainConfig's default sharpness
+BENCH_K4_SETTINGS = ((96, 5.0), (128, 5.0))
+BENCH_SP_N = 128
+
+
+def jax_bench_keys() -> tuple:
+    """The keys of the JAX package's ``bench.py`` printed line and of its
+    ``detail``, read from its source (it is not imported: it runs JAX)."""
+    import ast
+
+    with open(os.path.join(ROOT, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "dumps"
+                and isinstance(node.args[0], ast.Dict)):
+            keys = [k.value for k in node.args[0].keys]
+            detail = node.args[0].values[keys.index("detail")]
+            return set(keys), {k.value for k in detail.keys}
+    raise RuntimeError("bench.py prints no json.dumps({...}) line")
+
+
+def bench_first_preds(bench, cfg, imgs, seed: int):
+    """The train-mode prediction a fresh state from ``seed`` makes in its
+    first step on ``imgs`` (what the bench's first step feeds its loss),
+    as float32."""
+    import torch
+
+    from sqtpu_torch.models import params_vector
+
+    model = bench.seeded_model(cfg, seed, imgs.device).train()
+    with torch.no_grad():
+        return params_vector(model(imgs, remat=cfg.remat)).float()
+
+
+def near_labels(labels, seed: int):
+    """``labels`` plus BENCH_NOISE Gaussian noise from a generator seeded
+    ``seed``, the quaternions renormalized."""
+    import torch
+
+    gen = torch.Generator(device=labels.device)
+    gen.manual_seed(seed)
+    pred = labels + BENCH_NOISE * torch.randn(
+        labels.shape, generator=gen, device=labels.device)
+    return torch.cat([pred[:, :8], torch.nn.functional.normalize(
+        pred[:, 8:], dim=-1)], dim=-1)
+
+
+def phase_bench(dev) -> dict:
+    """Phase 37: ``sqtpu_torch.bench.measure`` on the card at its defaults
+    (batch 512, 10 timed steps), held:
+
+    1. its line has the JAX bench's keys less ``vs_baseline``, plus
+       ``detail.device``; every rate is finite and above 0;
+    2. each kernel launched as often as the bench's code implies. Every
+       measurement runs S = WARM_STEPS + ITERS = 13 steps (or batches):
+       K3 once for the resident batch, once a step online (S) and once a
+       batch in the data generation (S): 1 + 2S = 27; K1 and K2 once a
+       step of the headline, the online step and the K1/K2 sequence-
+       parallel step: 3S = 39 each; K4 once a step of the four
+       ``explicit_sym`` configurations: 4S = 52; K5, K6: 0 (no
+       validation, one card);
+    3. the new settings against their emulations and plain versions, on
+       the bench's own inputs: K4 at N=96 and N=128, sharpness 5, on the
+       fp32 explicit configurations' first-step prediction (seed 3) and
+       on the resident labels plus noise, with phase 11's bounds; K4 at
+       N=128, sharpness 20 on the bf16 encoder's first-step prediction
+       (as the loss takes it); K1/K2 at N=128 on the sequence-parallel
+       step's first-step prediction and, at its batch of 64, on its
+       labels plus noise, with phase 7's; then the times at the bench's
+       batch on its first-step predictions, and their bounds;
+    4. the sequence-parallel pair's first-step losses (same weights, seed
+       3; same 64 rows), through K1/K2 and through the plain loss, within
+       phase 8's STEP_LOSS_RTOL of each other.
+
+    The bench's line is printed as a line of its own."""
+    from sqtpu_torch import bench
+
+    steps = bench.WARM_STEPS + bench.ITERS
+    reset_counts()
+    t0 = time.perf_counter()
+    line, record = bench.measure(dev, bench.BATCH, bench.ITERS)
+    seconds = time.perf_counter() - t0
+    launches = dict(zip(KERNEL_COUNTS, counts()))
+    print(json.dumps(line), flush=True)
+
+    top, detail = jax_bench_keys()
+    if not (set(line) == top - {"vs_baseline"}
+            and set(line["detail"]) == detail | {"device"}):
+        raise RuntimeError(f"the bench's keys {sorted(line)} / "
+                           f"{sorted(line['detail'])} are not bench.py's")
+    rates = {"value": line["value"], **{
+        k: v for k, v in line["detail"].items()
+        if k.endswith("_per_chip") or k == "loss_point_evals_per_sec"}}
+    if not all(math.isfinite(v) and v > 0 for v in rates.values()):
+        raise RuntimeError(f"the bench's rates: {rates}")
+    want = {"K3": 1 + 2 * steps, "K1": 3 * steps, "K2": 3 * steps,
+            "K4": 4 * steps, "K5": 0, "K6": 0, "K6_bwd": 0}
+    if launches != want:
+        raise RuntimeError(f"the bench launched {launches}, expected {want}")
+    progress(f"bench ({seconds:.1f} s): {line['value']} imgs/s; launches "
+             f"{launches} as its code implies")
+
+    imgs, labels = bench.resident_batch(dev, bench.BATCH)
+    cfgs = bench.configs(bench.BATCH)
+    rows = BENCH_CHECK_ROWS
+    pred32 = bench_first_preds(bench, cfgs["explicit96"], imgs,
+                               bench.STATE_SEED)
+    near = near_labels(labels, bench.STATE_SEED)
+    k4 = {}
+    for n, sharp in BENCH_K4_SETTINGS:
+        worst = {k: max(a, b) for (k, a), b in zip(
+            explicit_vs_refs(f"K4 at the bench's explicit{n}",
+                             labels[:rows], pred32[:rows], n,
+                             sharp).items(),
+            explicit_vs_refs(f"K4 at the bench's explicit{n}, labels + "
+                             f"noise", labels[:rows], near[:rows], n,
+                             sharp).values())}
+        row, _ = explicit_times(labels, pred32, n, sharp,
+                                plain_runs=BENCH_PLAIN_RUNS, emu_runs=0)
+        row.update(max_abs_err=worst["grad"],
+                   max_rel_err_value=worst["value"], batch=bench.BATCH,
+                   n=n, sharp=sharp, checked_rows=rows)
+        k4[f"n{n}_sharp{sharp:g}"] = row
+    bf16_cfg = cfgs["explicit128_sharp20_bf16"]
+    pred16 = bench_first_preds(bench, bf16_cfg, imgs, bench.STATE_SEED)
+    k4_bf16 = explicit_vs_refs(
+        "K4 at the bench's bf16 encoder", labels[:rows], pred16[:rows], 128,
+        bf16_cfg.explicit_sharp)
+
+    sp_cfg = cfgs["sp_implicit128_pallas"]
+    sp_rows = min(bench.SP_BATCH, bench.BATCH)
+    sp_imgs = imgs[:sp_rows, ..., 0]
+    sp_pred = bench_first_preds(bench, sp_cfg, imgs[:sp_rows],
+                                bench.STATE_SEED)
+    worst = {k: max(a, b) for (k, a), b in zip(
+        implicit_vs_refs("K1/K2 at the bench's sequence-parallel step",
+                         sp_imgs[:rows], sp_pred[:rows], BENCH_SP_N).items(),
+        implicit_vs_refs("K1/K2 at the bench's sequence-parallel step, "
+                         "labels + noise", sp_imgs, near[:sp_rows],
+                         BENCH_SP_N).values())}
+    k1_sp, k2_sp = implicit_times(sp_imgs, sp_pred, BENCH_SP_N,
+                                  plain_runs=BENCH_PLAIN_RUNS, emu_runs=1)
+    for row in (k1_sp, k2_sp):
+        row.update(max_abs_err=worst["grad"],
+                   max_rel_err_value=worst["value"], batch=sp_rows,
+                   n=BENCH_SP_N, checked_rows=rows,
+                   checked_rows_near_labels=sp_rows)
+
+    kernel_loss = record["sp_implicit128_pallas"]["first"]
+    plain_loss = record["sp_implicit128_jnp"]["first"]
+    sp_rel = rel_err(kernel_loss, plain_loss)
+    if not sp_rel <= STEP_LOSS_RTOL:
+        raise RuntimeError(f"the sequence-parallel pair's first losses "
+                           f"{kernel_loss!r} (K1/K2) and {plain_loss!r} "
+                           f"(plain) are {sp_rel:.2e} apart")
+    peak = record["sp_implicit128_jnp"]["peak_bytes"]
+    progress(f"bench: the sequence-parallel pair's first losses "
+             f"{kernel_loss:.7f} / {plain_loss:.7f} (rel {sp_rel:.2e}); the "
+             f"plain step's peak memory {peak / 2**30:.2f} GiB (K1/K2's "
+             f"{record['sp_implicit128_pallas']['peak_bytes'] / 2**30:.2f})")
+    steps_rec = {name: {"ms_per_step": 1e3 * r["seconds"] / bench.ITERS,
+                        "imgs_per_sec": r["imgs_per_sec"], "rows": r["rows"],
+                        "first": r["first"], "last": r["last"],
+                        "peak_bytes": r["peak_bytes"]}
+                 for name, r in record.items()}
+    return {"line": line, "seconds": seconds, "launches": launches,
+            "steps": steps_rec, "sp_first_loss_rel": sp_rel,
+            "k4": k4, "k4_bf16": k4_bf16, "k1_sp": k1_sp, "k2_sp": k2_sp}
+
+
 def registers_of(ptxas: str, entry: str):
     """Registers a kernel got in ``ptxas -v`` output (None if absent)."""
     import re
@@ -4107,6 +4309,11 @@ def main() -> int:
     progress("phase 36 serve_bench answered every request as the "
              "in-process model; the probe holds the JAX package's run and "
              "README's finding")
+    bench = phase_bench(dev)
+    progress("phase 37 python -m sqtpu_torch.bench: bench.py's keys, the "
+             "launches its code implies, K4 at N=96/128 sharpness 5 and "
+             "K1/K2 at N=128 against their references, the SP pair's "
+             "first losses agree")
     f1_runs = {"ssl1_bf16": bf16["trainer"],
                "ssl1_bf16_profiled": bf16["trainer_profiled"],
                "keras_rot_fixed": krf["trainer"],
@@ -4143,6 +4350,7 @@ def main() -> int:
             if k != "keras_iso"},
          "turntable_setting": viz["turntable"]["k3"],
          "launches_turntable": viz["turntable"]["launches"][0],
+         "launches_bench": bench["launches"]["K3"],
          **row},
         {"name": "implicit_fwd", "route": "cuda",
          "source": "sqtpu_torch/csrc/implicit.cu",
@@ -4160,6 +4368,8 @@ def main() -> int:
              viz["sweeps"]["implicit"]["launches"][1],
          "launches_fit_view_implicit":
              viz["fits"]["implicit"]["launches"][1],
+         "bench_sp128_setting": bench["k1_sp"],
+         "launches_bench": bench["launches"]["K1"],
          **fwd_row},
         {"name": "implicit_bwd", "route": "cuda",
          "source": "sqtpu_torch/csrc/implicit.cu",
@@ -4175,6 +4385,8 @@ def main() -> int:
          "slerp_setting": viz["rows"]["k2_sweep"],
          "launches_fit_view_implicit":
              viz["fits"]["implicit"]["launches"][2],
+         "bench_sp128_setting": bench["k2_sp"],
+         "launches_bench": bench["launches"]["K2"],
          **bwd_row},
         {"name": "explicit_fused", "route": "cuda",
          "source": "sqtpu_torch/csrc/explicit.cu",
@@ -4188,7 +4400,10 @@ def main() -> int:
          "launches_fit_view": viz["fits"]["explicit"]["launches"][3],
          "probe_setting": probe["k4_row"],
          "launches_probe": sum(v[3] for v in probe["launches"].values()),
-         "slerp_batch_setting": viz["rows"]["k4_sweep"], **fused_row},
+         "slerp_batch_setting": viz["rows"]["k4_sweep"],
+         **{f"bench_{k}_setting": v for k, v in bench["k4"].items()},
+         "bench_bf16_check": bench["k4_bf16"],
+         "launches_bench": bench["launches"]["K4"], **fused_row},
         {"name": "explicit_fwd", "route": "cuda",
          "source": "sqtpu_torch/csrc/explicit.cu",
          "replaces": "sqtpu/ops/kernels/explicit.py:150",
@@ -4229,6 +4444,9 @@ def main() -> int:
                           "krf_neutral_start": krf["neutral_start"],
                           "keras_iso_eval": iso["eval"]},
                       "c4r1_step_split_ms": c4r1["split"],
+                      "bench": {k: bench[k] for k in
+                                ("seconds", "launches", "steps",
+                                 "sp_first_loss_rel")},
                       "slice_f2": {
                           "viz": {k: viz[k] for k in
                                   ("sweeps", "fits", "plots")},

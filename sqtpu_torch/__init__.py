@@ -18,8 +18,9 @@ protocol (:mod:`sqtpu_torch.data.augment`, the filters of
 points (:mod:`sqtpu_torch.predict`, :mod:`sqtpu_torch.generate`,
 :mod:`sqtpu_torch.scan`, ``evaluate single``); classical fitting and
 refinement (:mod:`sqtpu_torch.fit`), every model and option of the JAX
-package's configs, and the diagnostics and tools (:mod:`sqtpu_torch.viz`,
-:mod:`sqtpu_torch.tools`). Every function of ``sqtpu`` has a counterpart
+package's configs, the diagnostics and tools (:mod:`sqtpu_torch.viz`,
+:mod:`sqtpu_torch.tools`), and the bench (:mod:`sqtpu_torch.bench`, the
+counterpart of the JAX package's ``bench.py``). Every function of ``sqtpu`` has a counterpart
 but for renames and its JAX-only sharding and cache code; ROADMAP.md says
 what stays open.
 """

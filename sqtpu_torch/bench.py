@@ -1,0 +1,264 @@
+"""Headline benchmark of the port: rotated-SQ training throughput.
+
+Counterpart of the JAX package's ``bench.py``. It measures, in steady
+state on one card, what that bench measures, in the same order and with
+the same ``TrainConfig`` fields (:func:`configs`), and prints exactly one
+JSON line with its keys::
+
+    python -m sqtpu_torch.bench [--device cuda]
+
+1. ``value``: the full ResNetSQ train step (bf16 encoder compute, float32
+   parameters; the implicit loss at 64³ through K1/K2; Adam) on one
+   resident batch of real depth maps, rendered once by K3;
+2. ``online_imgs_per_sec_per_chip``: the same step, continuing from the
+   same state, on a fresh batch rendered by K3 each step;
+3. the ``explicit_sym`` recipe's steps (K4) at 96³ and 128³, sharpness 5
+   and 20, float32 and a bf16 encoder, each from a fresh state;
+4. the sequence-parallel pair at 128³, batch 64, ``remat``: the step
+   through K1/K2 and through the plain loss (``use_pallas=False``);
+5. ``datagen_imgs_per_sec_per_chip``: K3's batches alone.
+
+Every measurement takes 1 + 2 untimed steps (the first carries cuDNN's
+autotuning, as the JAX bench's first carries its compile), then
+``SQTPU_BENCH_ITERS`` (10) timed ones at batch ``SQTPU_BENCH_BATCH``
+(512) between two fences (:class:`~sqtpu_torch.utils.profiling.StepTimer`
+synchronizes the card), the last loss read with ``.item()``. As in the
+JAX bench, ``final_loss`` is the last online step's loss, and the
+sequence-parallel pair trains on the first min(64, batch) rows; its rate
+counts those rows.
+
+What differs from the JAX bench: there is no ``vs_baseline`` (its 2500
+imgs/s a chip is a target for a TPU v5e-8); ``detail.device`` holds the
+card's ``nvidia-smi`` name and power limit instead. The bench runs in one
+process on one card, so ``n_chips`` is 1, and it raises when started as
+one of several ranks. The kernels' ``nvcc`` builds are cached under
+``sqtpu_torch/build/``, so nothing stands for the JAX bench's compilation
+cache. Seeds come from explicit generators: 0 for the headline model, 1
+for the resident batch, 2 for the online stream, 3 for each later
+configuration's state. Progress goes to stderr. The CPU (``--device
+cpu``) is for tests only: the kernels' plain versions run there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+BATCH = int(os.environ.get("SQTPU_BENCH_BATCH", "512"))
+ITERS = int(os.environ.get("SQTPU_BENCH_ITERS", "10"))
+WARM_STEPS = 3
+IMAGE = 256
+SP_BATCH = 64
+MODEL_SEED, RESIDENT_SEED, ONLINE_SEED, STATE_SEED = 0, 1, 2, 3
+
+
+def configs(batch: int = BATCH) -> dict:
+    """The JAX bench's ``TrainConfig`` of each measurement (the online
+    step runs the headline's), by the name of its rate."""
+    from sqtpu_torch.utils.config import TrainConfig
+
+    def explicit(render_size, dtype="float32", **kw):
+        return TrainConfig(batch_size=batch, render_size=render_size,
+                           loss="explicit_sym", gauge_weight=2.0,
+                           dtype=dtype, **kw)
+
+    def sp(use_pallas):
+        return TrainConfig(batch_size=SP_BATCH, render_size=128,
+                           loss="implicit", use_pallas=use_pallas,
+                           remat=True, dtype="float32")
+
+    return {
+        "headline": TrainConfig(batch_size=batch, render_size=64,
+                                loss="implicit", dtype="bfloat16"),
+        "explicit96": explicit(96),
+        "explicit128": explicit(128),
+        "explicit128_sharp20": explicit(128, explicit_sharp=20.0),
+        "explicit128_sharp20_bf16": explicit(128, "bfloat16",
+                                             explicit_sharp=20.0),
+        "sp_implicit128_pallas": sp(True),
+        "sp_implicit128_jnp": sp(False),
+    }
+
+
+def seeded_model(cfg, seed: int, device: torch.device):
+    """ResNetSQ in ``cfg.dtype``'s compute dtype, with flax's initial
+    weights drawn from a generator seeded ``seed``."""
+    from sqtpu_torch.models import build_model
+    from sqtpu_torch.models.resnet import init_like_flax
+    from sqtpu_torch.utils.config import MODEL_DTYPES
+
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    model = build_model("resnet_sq", IMAGE, dtype=MODEL_DTYPES[cfg.dtype])
+    return init_like_flax(model, generator=gen).to(device)
+
+
+def _log(msg: str) -> None:
+    print(f"bench: {msg}", file=sys.stderr, flush=True)
+
+
+def _timed(fn, iters: int, device: torch.device) -> dict:
+    """``fn(i)`` (a step, returning a tensor to read) WARM_STEPS times
+    untimed, then ``iters`` times between two fences. Returns the seconds
+    of the timed calls, the first call's output read on the host and the
+    last's, and the peak memory allocated on the card (None on the
+    CPU)."""
+    from sqtpu_torch.utils.profiling import StepTimer
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    first = fn(0).reshape(-1)[0].item()
+    for i in range(1, WARM_STEPS):
+        out = fn(i)
+    out.reshape(-1)[0].item()
+    timer = StepTimer(device)
+    timer.start()
+    for i in range(iters):
+        out = fn(WARM_STEPS + i)
+    seconds = timer.stop()
+    return {"seconds": seconds, "first": first,
+            "last": out.reshape(-1)[0].item(),
+            "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                           if device.type == "cuda" else None)}
+
+
+def resident_batch(device: torch.device, batch: int = BATCH) -> tuple:
+    """The headline's resident batch, ``make_batch`` from a generator
+    seeded RESIDENT_SEED: ``batch`` real depth maps rendered by K3 and
+    their labels."""
+    from sqtpu_torch.data.synthetic import make_batch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(RESIDENT_SEED)
+    return make_batch(gen, batch, IMAGE, "hard")
+
+
+def measure(device: torch.device, batch: int = BATCH,
+            iters: int = ITERS) -> tuple[dict, dict]:
+    """The bench's measurements on ``device``: the dict :func:`main`
+    prints, and each measurement's numbers by name (``_timed``'s, its
+    rows and imgs/s)."""
+    from sqtpu_torch.data.synthetic import make_batch
+    from sqtpu_torch.training.loop import make_train_step
+    from sqtpu_torch.training.state import create_train_state
+    from sqtpu_torch.utils.profiling import card_line
+
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise RuntimeError("the bench runs in one process on one card; "
+                           "start it without torch.distributed.run")
+    record = {}
+    cfgs = configs(batch)
+
+    def timed(name, fn, rows):
+        t = time.perf_counter()
+        res = _timed(fn, iters, device)
+        res["rows"] = rows
+        res["imgs_per_sec"] = rows * iters / res["seconds"]
+        record[name] = res
+        _log(f"{name}: {res['imgs_per_sec']:.1f} imgs/s "
+             f"({1e3 * res['seconds'] / iters:.2f} ms a step, "
+             f"{time.perf_counter() - t:.1f} s with warm-up; peak "
+             f"{res['peak_bytes']} bytes)")
+        return res["imgs_per_sec"]
+
+    # the headline: bf16 encoder compute, the implicit loss through K1/K2,
+    # on one resident batch of real depth maps rendered once
+    cfg = cfgs["headline"]
+    state = create_train_state(seeded_model(cfg, MODEL_SEED, device), cfg)
+    step = make_train_step(state, cfg)
+    imgs, labels = resident_batch(device, batch)
+    per_chip = timed("headline", lambda i: step(imgs, labels), batch)
+    point_evals_per_sec = per_chip * cfg.render_size ** 3
+
+    # online: a fresh batch rendered on the card (K3) before each step
+    gen = torch.Generator(device=device)
+    gen.manual_seed(ONLINE_SEED)
+    online = timed("online", lambda i: step(*make_batch(
+        gen, batch, IMAGE, "hard")), batch)
+    final_loss = record["online"]["last"]
+    del state, step  # free the headline's model and Adam state
+
+    def time_step(name, rows=batch):
+        c = cfgs[name]
+        st = create_train_state(seeded_model(c, STATE_SEED, device), c)
+        step_x = make_train_step(st, c)
+        x, y = imgs[:rows], labels[:rows]
+        return timed(name, lambda i: step_x(x, y), x.shape[0])
+
+    rates = {name: time_step(name) for name in (
+        "explicit96", "explicit128", "explicit128_sharp20",
+        "explicit128_sharp20_bf16")}
+    for name in ("sp_implicit128_pallas", "sp_implicit128_jnp"):
+        rates[name] = time_step(name, SP_BATCH)
+
+    # data generation alone (K3), from the online stream
+    datagen = timed("datagen", lambda i: make_batch(
+        gen, batch, IMAGE, "hard")[0], batch)
+
+    line = {
+        "metric": "train_imgs_per_sec_per_chip",
+        "value": round(per_chip, 2),
+        "unit": "256x256 depth imgs/sec/chip (full train step, implicit "
+                "loss @64^3)",
+        "detail": {
+            "imgs_per_sec_total": round(per_chip, 2),
+            "n_chips": 1,
+            "batch": batch,
+            "loss_point_evals_per_sec": round(point_evals_per_sec, 1),
+            "final_loss": final_loss,
+            "online_imgs_per_sec_per_chip": round(online, 2),
+            "online_note": "data generation on the card (K3, hard "
+                           "ray-cast render) + train step",
+            "explicit96_imgs_per_sec_per_chip": round(
+                rates["explicit96"], 2),
+            "explicit96_note": "flagship recipe step (explicit_sym @96^3, "
+                               "K4 over each sample's z-window, fp32)",
+            "explicit128_imgs_per_sec_per_chip": round(
+                rates["explicit128"], 2),
+            "explicit128_sharp20_imgs_per_sec_per_chip": round(
+                rates["explicit128_sharp20"], 2),
+            "explicit128_note": "stage-6/7 recipe step (explicit_sym "
+                                "@128^3; sharp20 = the annealed stage, "
+                                "tighter z-window; K4 fused value + grad)",
+            "explicit128_sharp20_bf16_imgs_per_sec_per_chip": round(
+                rates["explicit128_sharp20_bf16"], 2),
+            "explicit128_bf16_note": "same step with a bf16 encoder (fp32 "
+                                     "K4 unchanged)",
+            "sp_implicit128_pallas_imgs_per_sec_per_chip": round(
+                rates["sp_implicit128_pallas"], 2),
+            "sp_implicit128_jnp_imgs_per_sec_per_chip": round(
+                rates["sp_implicit128_jnp"], 2),
+            "sp_note": "implicit @128^3 batch 64 with remat: K1/K2, and "
+                       "the plain loss (use_pallas=False) on the card",
+            "datagen_imgs_per_sec_per_chip": round(datagen, 2),
+            "device": card_line() if device.type == "cuda" else "cpu",
+        },
+    }
+    return line, record
+
+
+def run(device: torch.device, batch: int = BATCH,
+        iters: int = ITERS) -> dict:
+    """The bench's measurements on ``device``: the dict :func:`main`
+    prints."""
+    return measure(device, batch, iters)[0]
+
+
+def main(argv=None) -> dict:
+    from sqtpu_torch.utils.config import resolve_device
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda", help="cuda | cpu")
+    args = ap.parse_args(argv)
+    line = run(resolve_device(args.device))
+    print(json.dumps(line), flush=True)
+    return line
+
+
+if __name__ == "__main__":
+    main()

@@ -341,9 +341,11 @@ def refine_params(imgs: torch.Tensor, p0: torch.Tensor, method: str = "lm",
     Levenberg-Marquardt on the image's points (``n``² of them; it fits the
     visible surface), ``gd`` by ``steps`` Adam steps on the implicit
     depth-MAE loss at render size ``n`` (each sample on its own loss: the
-    sum of the per-sample losses is differentiated; K1/K2 on the card),
-    ``lm+gd`` the first then the second with max(steps, 50) steps. The
-    prefilter is applied once, first."""
+    sum of the per-sample losses is differentiated; K1/K2 on the card,
+    over the full lattice: the JAX package differentiates the plain loss,
+    ``sqtpu/fit.py:332``, and a z-window drops its tails), ``lm+gd`` the
+    first then the second with max(steps, 50) steps. The prefilter is
+    applied once, first."""
     imgs = apply_prefilter(imgs, prefilter)
     if method == "lm":
         pts, mask = image_points(imgs, n)
@@ -355,7 +357,8 @@ def refine_params(imgs: torch.Tensor, p0: torch.Tensor, method: str = "lm",
             imgs = imgs.clone()  # a tensor autograd may save
 
         def loss_fn(p):
-            return b * implicit_loss_auto(imgs, p, n, tau, sharp)
+            return b * implicit_loss_auto(imgs, p, n, tau, sharp,
+                                          z_window=False)
         p, _ = _fit_scan(p0, loss_fn, steps, lr, "adam")
         return geometry.clamp_params(p)
     if method == "lm+gd":

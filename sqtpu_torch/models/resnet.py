@@ -199,20 +199,24 @@ _TRUNC_STD = 0.87962566103423978
 
 
 @torch.no_grad()
-def init_like_flax(model: nn.Module) -> nn.Module:
+def init_like_flax(model: nn.Module,
+                   generator: torch.Generator | None = None) -> nn.Module:
     """Re-initialize ``model`` as flax initializes the JAX model:
     convolution and dense kernels lecun_normal (fan_in = in_channels ·
     kh · kw, or in_features), biases 0, BatchNorm scale 1 and bias 0,
     running mean 0 and variance 1. A layer with a ``kernel_scale`` draws
     its kernel from flax's ``variance_scaling(kernel_scale, "fan_in",
     "truncated_normal")`` instead, and one with a ``flax_bias`` method
-    sets its bias with it. Draws from torch's global generator."""
+    sets its bias with it. Draws from ``generator`` (a CPU generator for
+    a model on the CPU), or from torch's global generator when it is
+    None."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
             scale = getattr(m, "kernel_scale", 1.0)
             std = math.sqrt(scale / fan_in) / _TRUNC_STD
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std)
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
                 if hasattr(m, "flax_bias"):

@@ -31,7 +31,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 
 import torch
@@ -41,15 +40,6 @@ ITERS = int(os.environ.get("SQTPU_BENCH_ITERS", "10"))
 N = 128
 SHARP = 20.0
 IMAGE = 256
-
-
-def card_line() -> str:
-    """``nvidia-smi``'s name and power limit of the first card."""
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=30, check=True)
-    return res.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, device: torch.device) -> float:
@@ -93,6 +83,7 @@ def measure(device: torch.device) -> dict:
     from sqtpu_torch.ops.kernels import bounds, explicit_loss_auto
     from sqtpu_torch.ops.kernels import explicit as KE
     from sqtpu_torch.utils.config import TrainConfig
+    from sqtpu_torch.utils.profiling import card_line
 
     gen = torch.Generator(device=device)
     gen.manual_seed(1)

@@ -1,5 +1,6 @@
 """Profiling helpers: a ``torch.profiler`` trace of a whole run, a step
-timer fenced on the device, and the card's memory statistics.
+timer fenced on the device, the card's memory statistics and its
+``nvidia-smi`` name and power limit.
 
 Counterpart of ``sqtpu/utils/profiling.py``. :func:`trace` records the
 host's operators and, with a card, its kernels (CUPTI), and writes one
@@ -12,6 +13,7 @@ run in it, as the JAX package's does.
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 
 import torch
@@ -59,6 +61,16 @@ class StepTimer:
     @property
     def median(self) -> float:
         return sorted(self.times)[len(self.times) // 2] if self.times else 0.0
+
+
+def card_line() -> str:
+    """``nvidia-smi``'s name and power limit of the first card, the label
+    every measurement on it carries."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True)
+    return res.stdout.strip().splitlines()[0]
 
 
 def device_memory_stats() -> dict:

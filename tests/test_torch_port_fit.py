@@ -227,6 +227,48 @@ def test_refine_params_matches_jax(case, method):
     assert not np.allclose(got.numpy(), p0[:4])
 
 
+def test_refine_gd_sweeps_the_full_lattice(case, monkeypatch):
+    """``refine_params("gd")`` differentiates the full-lattice implicit
+    loss, as ``sqtpu/fit.py:332`` does: through K1/K2's emulation (what
+    the card computes) it passes ``z_window=False`` at every step and sits
+    on the plain refinement. At the gd setting (64³, τ 1.5, sharpness
+    260) a z-window moves the loss's value and gradient by float noise
+    only (float64: ≤ 1.4e-13 of a sample's largest gradient component on
+    c4's estimates of the first 125 truths, the full sweep's emulation
+    as much; ``python tests/torch_port_pins.py gd_window``), so the route
+    is what is pinned, and the window's gap is held below 1e-11."""
+    from sqtpu_torch.ops import losses as tlosses
+    from sqtpu_torch.ops.kernels import implicit as tK
+
+    _, imgs, p0 = case
+    x, q = _t(imgs[:4]), _t(p0[:4])
+    steps, n = 5, 64
+    want = tfit.refine_params(x, q, "gd", steps, n, 1e-3)
+    seen = []
+
+    def emulated(*args, z_window=True, **kw):
+        seen.append(z_window)
+        return tK.implicit_loss_emulated(*args, z_window=z_window, **kw)
+
+    monkeypatch.setattr(tfit, "implicit_loss_auto", emulated)
+    got = tfit.refine_params(x, q, "gd", steps, n, 1e-3)
+    assert seen == [False] * steps
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-8,
+                               atol=1e-9)
+    assert not np.allclose(got.numpy(), p0[:4])
+
+    def grad(fn):
+        p = q.clone().requires_grad_(True)
+        fn(p).sum().backward()
+        return p.grad
+
+    plain = grad(lambda p: tlosses.implicit_loss(x, p, n, reduce=False))
+    window = grad(lambda p: tK.implicit_loss_emulated(
+        x, p, n, z_window=True, reduce=False))
+    gap = ((window - plain).abs().amax(1) / plain.abs().amax(1)).max()
+    assert float(gap) < 1e-11
+
+
 def test_multiview_identity_view_is_recover():
     q = jquat.random_uniform(jax.random.split(jax.random.PRNGKey(5), 1)[0],
                              (), jnp.float64)

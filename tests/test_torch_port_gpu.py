@@ -44,6 +44,10 @@ sweep); K1 per sample (``reduce=False``). The depth-map filters run on
 the card and give the CPU's bits. The card's K3 and its torch emulation round differently (the
 kernel fuses multiply-adds): on 125 recorded truths 9 and 17 of 8.2 M
 pixels are one gray level apart at (64, 16) and (48, 12), none more.
+The bench's new settings: K1/K2 at its sequence-parallel step (N=128,
+B=64) and K4/K5 at its ``explicit96`` and ``explicit128`` steps (N=96
+and 128, sharpness 5). The
+``gd`` refinement runs K1/K2 over the full sweep.
 """
 
 import numpy as np
@@ -639,34 +643,65 @@ def test_kernel_at_the_corrector_setting_on_card(cuda_device):
     assert ((got * 255) % 1 > 1e-3).any() and got.max() > 0.3
 
 
+# The gd test's seeds and its bound on the share of parameter components
+# that end 1e-4 or more from the emulated trajectory. One H100 read 0-4.2%
+# at these seeds, windowed or over the full sweep, with no first-step sign
+# flip (Adam carries the kernels' float32 noise, 1e-5 of a gradient
+# component, that far in 10 steps); a bias of the kernels' gradient would
+# move most components.
+GD_SEEDS = (28, 29, 30, 31)
+GD_DRIFT_SHARE = 0.10
+
+
 @pytest.mark.gpu
 def test_refine_gd_through_the_kernels_on_card(cuda_device):
-    """``refine_params(method="gd")`` on the card (K1/K2, 10 Adam steps,
-    B=16) against the same steps on the emulated loss on the card: one
-    K1 and one K2 launch a step; the params a median 1e-5 apart, and at
-    most 2% of them 1e-4 or more (Adam's first step is ±lr on every
-    component, so a gradient component inside the kernels' tolerance of
-    zero may step the other way)."""
+    """``refine_params(method="gd")`` on the card (K1/K2 over the full
+    sweep, as ``sqtpu/fit.py:332`` differentiates the plain loss; 10 Adam
+    steps, B=16) at each of GD_SEEDS: one K1 and one K2 launch a step; at
+    every step's parameters the kernels' gradient within the kernels'
+    tolerance of the emulated full sweep's (rtol 5e-3, atol 1e-4 of its
+    largest component), the refinement the same Adam steps on the
+    kernels' loss to the bit; against the same steps on the emulated loss
+    the params a median 1e-5 apart, and at most GD_DRIFT_SHARE of them
+    1e-4 or more. Prints each seed's median gap and share (``-s``)."""
     from sqtpu_torch import fit
     from sqtpu_torch.ops import geometry
 
-    rng = np.random.default_rng(28)
-    truth = torch.from_numpy(_params(rng, 16)).to(cuda_device)
-    imgs = render_hard_auto(truth, 256, n_sweep=64, n_bisect=16)
-    p0 = truth + torch.from_numpy(rng.normal(
-        scale=0.02, size=(16, 12)).astype(np.float32)).to(cuda_device)
-    p0 = torch.cat([p0[:, :8], torch.nn.functional.normalize(p0[:, 8:],
-                                                             dim=-1)], -1)
-    before = (K.fwd_launches, K.bwd_launches)
-    got = fit.refine_params(imgs, p0, "gd", 10, 64)
-    assert (K.fwd_launches, K.bwd_launches) == (before[0] + 10,
-                                                before[1] + 10)
-    ref, _ = fit._fit_scan(p0, lambda q: 16 * K.implicit_loss_emulated(
-        imgs, q, 64), 10, 3e-3, "adam")
-    ref = geometry.clamp_params(ref)
-    gap = (got - ref).abs().cpu().numpy()
-    assert np.median(gap) < 1e-5 and (gap >= 1e-4).mean() <= 0.02
-    assert (got - p0).abs().max() > 1e-3
+    for seed in GD_SEEDS:
+        rng = np.random.default_rng(seed)
+        truth = torch.from_numpy(_params(rng, 16)).to(cuda_device)
+        imgs = render_hard_auto(truth, 256, n_sweep=64, n_bisect=16)
+        p0 = truth + torch.from_numpy(rng.normal(
+            scale=0.02, size=(16, 12)).astype(np.float32)).to(cuda_device)
+        p0 = torch.cat([p0[:, :8], torch.nn.functional.normalize(
+            p0[:, 8:], dim=-1)], -1)
+        before = (K.fwd_launches, K.bwd_launches)
+        got = fit.refine_params(imgs, p0, "gd", 10, 64)
+        assert (K.fwd_launches, K.bwd_launches) == (before[0] + 10,
+                                                    before[1] + 10)
+
+        def held(q):
+            loss = 16 * K.implicit_loss_cuda(imgs, q, 64, z_window=False)
+            g, = torch.autograd.grad(loss, q, retain_graph=True)
+            qe = q.detach().clone().requires_grad_(True)
+            ge, = torch.autograd.grad(16 * K.implicit_loss_emulated(
+                imgs, qe, 64, z_window=False), qe)
+            ge = ge.cpu().numpy()
+            np.testing.assert_allclose(g.cpu().numpy(), ge, rtol=5e-3,
+                                       atol=grad_atol(ge))
+            return loss
+
+        forced, _ = fit._fit_scan(p0, held, 10, 3e-3, "adam")
+        assert torch.equal(geometry.clamp_params(forced), got)
+        ref, _ = fit._fit_scan(p0, lambda q: 16 * K.implicit_loss_emulated(
+            imgs, q, 64, z_window=False), 10, 3e-3, "adam")
+        gap = (got - geometry.clamp_params(ref)).abs().cpu().numpy()
+        share = (gap >= 1e-4).mean()
+        print(f"gd seed {seed}: median gap {np.median(gap):.3e}, share "
+              f">= 1e-4 {share:.4f} ({int((gap >= 1e-4).sum())} of "
+              f"{gap.size})")
+        assert np.median(gap) < 1e-5 and share <= GD_DRIFT_SHARE
+        assert (got - p0).abs().max() > 1e-3
 
 
 @pytest.mark.gpu
@@ -904,3 +939,65 @@ def test_implicit_kernels_per_sample_full_sweep_on_card(cuda_device):
         np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                    rtol=1e-5)
     assert float(mean) == pytest.approx(float(got.mean()), rel=1e-6)
+
+
+# ---- the bench's settings (python -m sqtpu_torch.bench) --------------------
+
+@pytest.mark.gpu
+def test_implicit_kernels_at_the_bench_sp_setting_on_card(cuda_device):
+    """K1/K2 at the bench's sequence-parallel step, N=128, B=64 (τ 1.5,
+    sharpness 260, each sample's window as the train step sweeps it), on
+    K3 images, against the emulation and the plain loss with the ssl1
+    shape's tolerances."""
+    rng = np.random.default_rng(95)
+    truths = _params(rng, 64)
+    pred = truths + 0.02 * rng.normal(size=truths.shape)
+    pred[:, 8:] /= np.linalg.norm(pred[:, 8:], axis=-1, keepdims=True)
+    pred = pred.astype(np.float32)
+    k3 = render_hard_auto(torch.tensor(truths, device=cuda_device), 256,
+                          n_sweep=48, n_bisect=12).cpu().numpy()
+    K.reset_launches()
+    got = _torch_value_and_grads(K.implicit_loss_cuda, pred, k3, 128, True,
+                                 cuda_device)
+    assert (K.fwd_launches, K.bwd_launches) == (1, 1)
+    for fn in (K.implicit_loss_emulated, _plain):
+        want = _torch_value_and_grads(fn, pred, k3, 128, True, cuda_device)
+        assert got[0] == pytest.approx(want[0], rel=1e-5)
+        np.testing.assert_allclose(got[1], want[1], rtol=5e-3,
+                                   atol=grad_atol(want[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("z_window", [True, False])
+@pytest.mark.parametrize("n", [96, 128])
+def test_explicit_kernels_at_the_bench_sharp5_settings_on_card(cuda_device,
+                                                               n, z_window):
+    """K4/K5 at the bench's ``explicit96`` and ``explicit128`` steps,
+    N=96 and 128, sharpness 5, B=64: against the emulation (value 1e-5,
+    gradient rtol 5e-3 atol 1e-6) and, over the full sweep, the plain
+    loss with the same bounds; windowed, the plain loss's value within
+    1e-3 (at sharpness 5 a window moves single gradient components by
+    percents at small batches: the c3r tests' finding); K5's sums are
+    K4's bit for bit."""
+    true, pred = _explicit_batch(n, 64)
+    kw = {"z_window": z_window, "sharp": 5.0}
+    KE.reset_launches()
+    got = _explicit_value_and_grad(KE.explicit_loss_cuda, true, pred, n,
+                                   cuda_device, **kw)
+    assert (KE.fused_launches, KE.fwd_launches) == (1, 0)
+    emu = _explicit_value_and_grad(KE.explicit_loss_emulated, true, pred,
+                                   n, cuda_device, **kw)
+    assert got[0] == pytest.approx(emu[0], rel=1e-5)
+    np.testing.assert_allclose(got[1], emu[1], rtol=5e-3, atol=1e-6)
+    plain = _explicit_value_and_grad(
+        lambda t, p, n, **_: tlosses.explicit_loss(t, p, n, sharp=5.0),
+        true, pred, n, cuda_device)
+    if z_window:
+        assert got[0] == pytest.approx(plain[0], rel=1e-3)
+    else:
+        assert got[0] == pytest.approx(plain[0], rel=1e-5)
+        np.testing.assert_allclose(got[1], plain[1], rtol=5e-3, atol=1e-6)
+    t, p = (torch.tensor(x, device=cuda_device) for x in (true, pred))
+    par_t, par_p = KE.pack_params(t, p, n, z_window, KE.default_margin(5.0))
+    k4, _ = KE.cuda_fused(par_t, par_p, n, 5.0)
+    assert torch.equal(KE.cuda_fwd(par_t, par_p, n, 5.0), k4)

@@ -7,6 +7,7 @@ test suite, run from the repository root::
 
     python tests/torch_port_pins.py lm          # phase 24
     python tests/torch_port_pins.py gd          # phase 25
+    python tests/torch_port_pins.py gd_window   # the window's gap at gd
     python tests/torch_port_pins.py corrector   # phase 26
     python tests/torch_port_pins.py fit         # phase 28
     python tests/torch_port_pins.py bf16        # phase 29
@@ -32,6 +33,12 @@ is the JAX package's ``tools/probe_keras2019.py`` run at phase 36's
 setting (PROBE_*), with its own truths and starts: it writes them, the
 losses of the first 10 steps, the non-finite-gradient flags and the final
 IoUs to PROBE_PINS, which phase 36 feeds the port's descent.
+``gd_window`` measures, in float64, what a z-window does to the ``gd``
+refinement's loss (64³, τ 1.5, sharpness 260) on c4's estimates of the
+first 125 truths and on the LM's (``lm+gd``'s start): the port's
+emulation of K1/K2 over each sample's window against the plain,
+full-lattice loss that ``sqtpu/fit.py:332`` differentiates, and the
+port's 30-step refinement through each.
 """
 
 from __future__ import annotations
@@ -162,6 +169,103 @@ def pin_gd(n: int) -> None:
         fn = jax.jit(lambda im, q, m=method: jfit.refine_params(
             im, q, m, 30, 64))
         emit(f"c4_refine_{method}", t0, **score(p, batched(fn, imgs, c4)))
+
+
+GD_CHUNK = 25
+
+
+def _port_gd_gaps(imgs: np.ndarray, start: np.ndarray) -> dict:
+    """The per-sample loss and gradient of the port's windowed emulation
+    (what K1/K2 computed before the full sweep) and full-sweep emulation
+    against the plain loss, float64, at the gd setting: the largest
+    relative value gap, and the largest gradient gap of a sample over
+    that sample's largest gradient component."""
+    import torch
+
+    from sqtpu_torch.ops import losses as tlosses
+    from sqtpu_torch.ops.kernels import implicit as tK
+
+    def per_sample(fn, im, q):
+        x = q.clone().requires_grad_(True)
+        v = fn(im, x)
+        g, = torch.autograd.grad(v.sum(), x)
+        return v.detach(), g
+
+    fns = {
+        "plain": lambda im, x: tlosses.implicit_loss(
+            im, x, 64, 1.5, 260.0, reduce=False),
+        "window": lambda im, x: tK.implicit_loss_emulated(
+            im, x, 64, 1.5, 260.0, z_window=True, reduce=False),
+        "full_sweep": lambda im, x: tK.implicit_loss_emulated(
+            im, x, 64, 1.5, 260.0, z_window=False, reduce=False)}
+    out = {k: ([], []) for k in fns}
+    for i in range(0, imgs.shape[0], GD_CHUNK):
+        im = torch.from_numpy(imgs[i:i + GD_CHUNK].astype(np.float64))
+        q = torch.from_numpy(start[i:i + GD_CHUNK].astype(np.float64))
+        for k, fn in fns.items():
+            v, g = per_sample(fn, im, q)
+            out[k][0].append(v)
+            out[k][1].append(g)
+    (vp, gp) = (torch.cat(x) for x in out["plain"])
+    res = {}
+    for k in ("window", "full_sweep"):
+        v, g = (torch.cat(x) for x in out[k])
+        rel = ((v - vp).abs() / vp.abs()).max()
+        grel = ((g - gp).abs().amax(1) / gp.abs().amax(1))
+        res[k] = {"value_rel_max": float(rel),
+                  "mean_value_rel": float(abs(v.mean() - vp.mean())
+                                          / vp.mean()),
+                  "grad_rel_max": float(grel.max()),
+                  "grad_rel_median": float(grel.median()),
+                  "worst_sample": int(grel.argmax())}
+    return res
+
+
+def _port_gd(imgs: np.ndarray, start: np.ndarray, window: bool,
+             steps: int = 30) -> np.ndarray:
+    """The port's ``refine_params(..., "gd", steps, 64)`` in float64 on
+    the CPU through the plain loss, or with K1/K2's windowed emulation in
+    its place."""
+    import torch
+
+    from sqtpu_torch import fit as tfit
+    from sqtpu_torch.ops.kernels import implicit as tK
+
+    auto = tfit.implicit_loss_auto
+    if window:
+        tfit.implicit_loss_auto = (
+            lambda *a, z_window=True, **k: tK.implicit_loss_emulated(
+                *a, z_window=True, **k))
+    try:
+        return np.concatenate([tfit.refine_params(
+            torch.from_numpy(imgs[i:i + GD_CHUNK].astype(np.float64)),
+            torch.from_numpy(start[i:i + GD_CHUNK].astype(np.float64)),
+            "gd", steps, 64).numpy()
+            for i in range(0, imgs.shape[0], GD_CHUNK)])
+    finally:
+        tfit.implicit_loss_auto = auto
+
+
+def pin_gd_window(n: int) -> None:
+    """The z-window's gap at the gd refinement's setting (see the module's
+    docstring), and what it does to the refined means."""
+    import torch
+
+    torch.set_num_threads(4)
+    t0 = time.time()
+    p = truths(n)
+    imgs = images(p)
+    c4 = predict(model_fn("resnet_sq", C4), imgs)
+    lm = batched(jax.jit(lambda im, q: jfit.refine_params(
+        im, q, "lm", 30, 64)), imgs, c4)
+    emit("gd_window_gap_at_c4", t0, n=n, **_port_gd_gaps(imgs, c4))
+    emit("gd_window_gap_at_lm", t0, n=n, **_port_gd_gaps(imgs, lm))
+    plain = _port_gd(imgs, c4, window=False)
+    windowed = _port_gd(imgs, c4, window=True)
+    emit("gd_window_refined", t0, n=n,
+         params_max_abs_gap=float(np.abs(windowed - plain).max()),
+         plain=score(p, plain.astype(np.float32)),
+         window=score(p, windowed.astype(np.float32)))
 
 
 def pin_corrector(n: int) -> None:
@@ -472,6 +576,8 @@ if __name__ == "__main__":
         pin_lm(int(sys.argv[2]) if len(sys.argv) > 2 else 1000)
     elif what == "gd":
         pin_gd(int(sys.argv[2]) if len(sys.argv) > 2 else BATCH)
+    elif what == "gd_window":
+        pin_gd_window(int(sys.argv[2]) if len(sys.argv) > 2 else BATCH)
     elif what == "corrector":
         pin_corrector(int(sys.argv[2]) if len(sys.argv) > 2 else 1000)
     elif what == "fit":
