@@ -36,7 +36,9 @@ user calls:
   dryrun's gates (``sqtpu_torch.parallel.dryrun``); ``python -m
   torch.distributed.run --nproc_per_node 2 -m sqtpu_torch.train`` with
   the ssl1 recipe and ``--n-grid 2``, resumed once, with each rank's
-  launch counts;
+  launch counts; on a machine with two cards or more, phases 16-17 run
+  again with a card a rank (nccl), and the gradient all-reduce of both
+  is printed side by side;
 * the sensor-noise protocol, the bulk entry points and directory data
   (phases 18-22): the robust artifact's closed loop on the recorded
   truths, clean and under the noise protocol of ``runs/eval_c3r_*`` raw
@@ -110,12 +112,21 @@ user calls:
   predictions and on its labels plus noise against their emulations and
   plain versions, and the
   sequence-parallel pair's first-step losses (K1/K2 and the plain loss)
-  against each other.
+  against each other;
+* the bench over two ranks (phase 38): ``python -m torch.distributed.run
+  --nproc_per_node 2 -m sqtpu_torch.bench`` at phase 37's batch, 3 timed
+  steps, a card a rank (nccl) where there are two or more, else both
+  ranks on the one card (gloo): its line's keys and ``n_chips``, each
+  rank's first-step losses over the resident rows against phase 37's,
+  the ranks' models equal to the bit after the headline, each rank's
+  launches, and each measurement's ms a step beside phase 37's.
 
 One flushed progress line per phase, with the elapsed seconds; no failure
-is caught. The bench prints its JSON line among them. The last lines
-are one JSON object with the train steps' splits, the trainers' rates and run-to-run gaps, the card (``nvidia-smi`` name and power limit), one JSON object
-with each kernel's numbers, and ``{"ok": true, "device": {...}}``.
+is caught. The bench prints its JSON lines among them (phases 37 and
+38). The last lines are one JSON object with the train steps' splits,
+the trainers' rates and run-to-run gaps, the card (``nvidia-smi`` name
+and power limit), one JSON object with each kernel's numbers, and
+``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when torch sees no CUDA device or
 when the port is not beside it. A hang ends in a stack dump and a
@@ -125,6 +136,7 @@ non-zero exit after HANG_S (1100 s). It imports nothing of JAX or of
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import json
 import math
@@ -1345,8 +1357,9 @@ def split_job(layout, spec: dict) -> dict:
     """A spawned rank's job (``sqtpu_torch.parallel.dryrun.spawn``): the
     step split of ``spec["cfg"]`` from ``spec["weights"]`` over its
     layout."""
-    return step_split(layout.device, spec["cfg"], RANK_SPLIT,
-                      spec["weights"], layout)
+    return {**step_split(layout.device, spec["cfg"], RANK_SPLIT,
+                         spec["weights"], layout),
+            "backend": layout.backend}
 
 
 SSL1_SPLIT = ("render (K3)", "forward", "loss (K1)", "backward (incl. K2)",
@@ -1715,13 +1728,31 @@ def phase_slab(dev) -> dict:
             "max_abs_err_image_grad": worst["img_grad"]}
 
 
-def phase_two_ranks(dev) -> dict:
-    """Two ranks spawned on the one card, one train step of each layout
-    at full width against one rank (this process) on the same weights and
-    batch: 'grid' 1x2 (ssl1, K6), 'data' 2x1 (ssl1, K1/K2), 'data' 2x1
-    (c4c with remat, K4); each rank's launches, the ranks' models equal
-    after the step, each rank's step split and peak memory; then the
-    dryrun's gates at its small size."""
+@contextlib.contextmanager
+def cards_for_ranks(per_card: bool):
+    """The cards the processes started inside see: every card
+    (``per_card``: a card a rank, ``nccl``) or this process's first one
+    alone (the ranks share it, ``gloo``). This process keeps its own."""
+    before = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if not per_card:
+        os.environ["CUDA_VISIBLE_DEVICES"] = (before or "0").split(",")[0]
+    try:
+        yield "nccl" if per_card else "gloo"
+    finally:
+        if before is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = before
+
+
+def phase_two_ranks(dev, per_card: bool = False) -> dict:
+    """Two ranks spawned on the one card (gloo), or with ``per_card`` on
+    a card each (nccl), one train step of each layout at full width
+    against one rank (this process) on the same weights and batch: 'grid'
+    1x2 (ssl1, K6), 'data' 2x1 (ssl1, K1/K2), 'data' 2x1 (c4c with remat,
+    K4); each rank's launches and backend, the ranks' models equal after
+    the step, each rank's step split and peak memory; then the dryrun's
+    gates at its small size."""
     import torch
 
     from sqtpu_torch.parallel import dryrun
@@ -1731,8 +1762,10 @@ def phase_two_ranks(dev) -> dict:
     mode = subprocess.run(
         ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=30, check=True)
-    progress(f"compute mode {mode.stdout.strip()}; {RANKS} ranks on one "
-             "card through gloo")
+    where = ("a card each through nccl" if per_card
+             else "one card through gloo")
+    progress(f"compute mode {mode.stdout.strip().splitlines()[0]}; {RANKS} "
+             f"ranks on {where}")
     ssl1 = TrainConfig(batch_size=LOSS_B, nan_policy="skip")
     c4c = TrainConfig(batch_size=C4C_B, remat=True, learning_rate=5e-6,
                       nan_policy="skip", **C4C_LOSS)
@@ -1754,16 +1787,21 @@ def phase_two_ranks(dev) -> dict:
     t = time.perf_counter()
     # each layout's step, then its step split (a job of its own, after
     # the step's launches were read)
-    results = dryrun.spawn(RANKS, [(ng, job, spec)
-                                   for _, ng, spec, _, _ in layouts
-                                   for job in (dryrun.step_job, split_job)],
-                           device="cuda")
+    with cards_for_ranks(per_card) as backend:
+        results = dryrun.spawn(
+            RANKS, [(ng, job, spec) for _, ng, spec, _, _ in layouts
+                    for job in (dryrun.step_job, split_job)],
+            device="cuda")
     progress(f"{RANKS} ranks ran the three layouts in "
              f"{time.perf_counter() - t:.1f} s")
     out = {}
     for i, (name, _, spec, want, want_one) in enumerate(layouts):
         ranks = [r[2 * i] for r in results]
         splits = [r[2 * i + 1]["ms"] for r in results]
+        used = {r[2 * i + 1]["backend"] for r in results}
+        if used != {backend}:
+            raise RuntimeError(f"[{name}] the ranks ran {used}, expected "
+                               f"{backend}")
         one = dryrun.step_job(Layout(device=dev), spec)
         torch.cuda.empty_cache()
         line = dryrun.check_step_parity(name, ranks, one, PARITY_STATS_RTOL)
@@ -1792,46 +1830,70 @@ def phase_two_ranks(dev) -> dict:
                       for r, split in zip(ranks, splits)]}
     del results
     t = time.perf_counter()
-    dryrun.dryrun(RANKS, "cuda", say=progress)
-    progress(f"dryrun gates at {RANKS} ranks on the card in "
+    with cards_for_ranks(per_card):
+        dryrun.dryrun(RANKS, "cuda", say=progress)
+    progress(f"dryrun gates at {RANKS} ranks on {where} in "
              f"{time.perf_counter() - t:.1f} s")
     return out
 
 
-def _launch(ckpt_dir: str, *flags: str) -> None:
-    """``python -m torch.distributed.run`` with two ranks on this card,
-    the trainer with ``flags``; its whole process group is killed if it
-    outlives LAUNCH_TIMEOUT_S."""
+def allreduce_beside(two_ranks: dict) -> None:
+    """Each layout's gradient all-reduce stage per rank, gloo on one card
+    beside nccl on a card each."""
+    for name, gloo in two_ranks["gloo"].items():
+        stage = [[r["split_ms"]["gradient all-reduce"] for r in run["ranks"]]
+                 for run in (gloo, two_ranks["nccl"][name])]
+        progress(f"[{name}] gradient all-reduce per rank, ms: gloo on one "
+                 f"card {[round(v, 3) for v in stage[0]]}, nccl on a card "
+                 f"each {[round(v, 3) for v in stage[1]]}")
+
+
+def run_launcher(module_args: list, **env: str) -> tuple:
+    """``python -m torch.distributed.run --standalone`` with RANKS ranks
+    on ``module_args`` (``-m <module> ...``), ``env`` added to this
+    process's environment: its exit code, stdout and stderr. Its whole
+    process group is killed if it outlives LAUNCH_TIMEOUT_S."""
     import signal
 
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(RANKS), "-m", "sqtpu_torch.train",
-           *flags, "--device", "cuda", "--ckpt-dir", ckpt_dir]
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+           "--nproc_per_node", str(RANKS), *module_args]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ,
+                                                    PYTHONPATH=ROOT, **env),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
     try:
-        log, _ = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+        out, err = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
     finally:
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
-    if proc.returncode != 0:
-        raise RuntimeError(f"the launcher exited with {proc.returncode}:\n"
-                           + log[-4000:])
+    return proc.returncode, out, err
+
+
+def _launch(ckpt_dir: str, *flags: str) -> str:
+    """The trainer with ``flags`` through the launcher, two ranks on the
+    cards :func:`cards_for_ranks` left visible; its log."""
+    rc, out, err = run_launcher(["-m", "sqtpu_torch.train", *flags,
+                                 "--device", "cuda", "--ckpt-dir",
+                                 ckpt_dir])
+    log = out + err
+    if rc != 0:
+        raise RuntimeError(f"the launcher exited with {rc}:\n"
+                           + out[-2000:] + err[-4000:])
     for line in log.splitlines():
         line = line.split("\r")[-1].replace("\x1b[K", "").strip()
         if "mesh=" in line or line.startswith("Epoch"):
             progress("  " + line)
+    return log
 
 
-def phase_launcher(card: str) -> dict:
+def phase_launcher(card: str, per_card: bool = False) -> dict:
     """The trainer through ``torch.distributed.run`` with two ranks on the
-    card, the ssl1 recipe with ``--n-grid 2`` for 2 epochs, then resumed
-    for a third: each rank's launches (read from the run's metrics, every
-    rank's counters start at 0 in its own process), imgs/s per epoch,
-    peak memory per rank, and the checkpoints rank 0 alone writes."""
+    card (gloo), or with ``per_card`` on a card each (nccl), the ssl1
+    recipe with ``--n-grid 2`` for 2 epochs, then resumed for a third:
+    each rank's launches (read from the run's metrics, every rank's
+    counters start at 0 in its own process), imgs/s per epoch, peak memory
+    per rank, and the checkpoints rank 0 alone writes."""
     import shutil
 
     import torch
@@ -1844,7 +1906,12 @@ def phase_launcher(card: str) -> dict:
         flags = (*SSL1_RECIPE, "--n-grid", str(RANKS))
         for epochs, extra in ((2, ()), (3, ("--continue-training",
                                              "--resume-from", "last"))):
-            _launch(ckpt_dir, *flags, "--max-epochs", str(epochs), *extra)
+            with cards_for_ranks(per_card) as backend:
+                log = _launch(ckpt_dir, *flags, "--max-epochs", str(epochs),
+                              *extra)
+            if f"backend={backend}" not in log:
+                raise RuntimeError(f"the trainer's ranks did not run "
+                                   f"{backend}")
             files = sorted(os.listdir(ckpt_dir))
             if files != ["best.meta.json", "best.pt", "last.meta.json",
                          "last.pt", "train_metrics.jsonl"]:
@@ -1876,7 +1943,7 @@ def phase_launcher(card: str) -> dict:
                      f"{[round(r['val_loss'], 6) for r in records]}, imgs/s "
                      f"per epoch {rates}, peak GiB per rank {memory}, "
                      f"launches per rank {records[-1]['ranks'][0]['launches']}"
-                     f" on {card}")
+                     f" through {backend} on {card}")
             out["resumed" if extra else "run"] = {
                 "imgs_per_s": rates, "max_memory_gib": memory,
                 "launches": [s["launches"] for s in records[-1]["ranks"]]}
@@ -4010,6 +4077,36 @@ def near_labels(labels, seed: int):
         pred[:, 8:], dim=-1)], dim=-1)
 
 
+def check_bench_line(line: dict, batch: int) -> None:
+    """The bench's line has the JAX bench's keys less ``vs_baseline``,
+    plus ``detail.device``, the global ``batch``, and finite rates above
+    0."""
+    top, detail = jax_bench_keys()
+    if not (set(line) == top - {"vs_baseline"}
+            and set(line["detail"]) == detail | {"device"}):
+        raise RuntimeError(f"the bench's keys {sorted(line)} / "
+                           f"{sorted(line['detail'])} are not bench.py's")
+    rates = {"value": line["value"], **{
+        k: v for k, v in line["detail"].items()
+        if k.endswith("_per_chip") or k == "loss_point_evals_per_sec"}}
+    if not all(math.isfinite(v) and v > 0 for v in rates.values()):
+        raise RuntimeError(f"the bench's rates: {rates}")
+    if line["detail"]["batch"] != batch:
+        raise RuntimeError(f"the bench ran batch {line['detail']['batch']}"
+                           f", expected {batch}")
+
+
+def bench_launches(steps: int) -> dict:
+    """Each kernel's launches in a bench of ``steps`` steps (or batches) a
+    measurement, on one rank: K3 once for the resident batch, once a step
+    online and once a batch of the data generation; K1 and K2 once a step
+    of the headline, the online step and the K1/K2 sequence-parallel
+    step; K4 once a step of the four ``explicit_sym`` configurations; K5,
+    K6: none (no validation, no grid axis)."""
+    return {"K3": 1 + 2 * steps, "K1": 3 * steps, "K2": 3 * steps,
+            "K4": 4 * steps, "K5": 0, "K6": 0, "K6_bwd": 0}
+
+
 def phase_bench(dev) -> dict:
     """Phase 37: ``sqtpu_torch.bench.measure`` on the card at its defaults
     (batch 512, 10 timed steps), held:
@@ -4048,18 +4145,8 @@ def phase_bench(dev) -> dict:
     launches = dict(zip(KERNEL_COUNTS, counts()))
     print(json.dumps(line), flush=True)
 
-    top, detail = jax_bench_keys()
-    if not (set(line) == top - {"vs_baseline"}
-            and set(line["detail"]) == detail | {"device"}):
-        raise RuntimeError(f"the bench's keys {sorted(line)} / "
-                           f"{sorted(line['detail'])} are not bench.py's")
-    rates = {"value": line["value"], **{
-        k: v for k, v in line["detail"].items()
-        if k.endswith("_per_chip") or k == "loss_point_evals_per_sec"}}
-    if not all(math.isfinite(v) and v > 0 for v in rates.values()):
-        raise RuntimeError(f"the bench's rates: {rates}")
-    want = {"K3": 1 + 2 * steps, "K1": 3 * steps, "K2": 3 * steps,
-            "K4": 4 * steps, "K5": 0, "K6": 0, "K6_bwd": 0}
+    check_bench_line(line, bench.BATCH)
+    want = bench_launches(steps)
     if launches != want:
         raise RuntimeError(f"the bench launched {launches}, expected {want}")
     progress(f"bench ({seconds:.1f} s): {line['value']} imgs/s; launches "
@@ -4133,6 +4220,104 @@ def phase_bench(dev) -> dict:
             "k4": k4, "k4_bf16": k4_bf16, "k1_sp": k1_sp, "k2_sp": k2_sp}
 
 
+# ---------------------------------------------------------------------------
+# Phase 38: the bench over two ranks through the launcher
+# ---------------------------------------------------------------------------
+
+# python -m torch.distributed.run --nproc_per_node 2 -m sqtpu_torch.bench at
+# phase 37's global batch, 3 timed steps a measurement: a card a rank
+# (nccl) where the machine has two or more, else both ranks on the one
+# (gloo). Each first-step loss over the resident rows against phase 37's
+# one rank: the JAX package's gate in float32 (__graft_entry__.py:196-210),
+# bf16's resolution (phase 29's BF16_LOSS_RTOL) for the bf16 encoders.
+BENCH_RANK_ITERS = 3
+BENCH_RANK_RTOL = {"float32": 1e-5, "bfloat16": BF16_LOSS_RTOL}
+BENCH_RESIDENT = ("headline", "explicit96", "explicit128",
+                  "explicit128_sharp20", "explicit128_sharp20_bf16",
+                  "sp_implicit128_pallas", "sp_implicit128_jnp")
+
+
+def phase_bench_ranks(one: dict) -> dict:
+    """Phase 38: ``python -m torch.distributed.run --nproc_per_node 2 -m
+    sqtpu_torch.bench`` at phase 37's batch, BENCH_RANK_ITERS timed steps,
+    each rank on a card of its own through nccl where there are two cards
+    or more, else both on the one card through gloo (never the CPU). Held:
+    one line with the keys, ``n_chips`` the cards the ranks used, each
+    rank's backend, its first-step losses over the resident rows against
+    ``one`` (phase 37's record) within BENCH_RANK_RTOL, the ranks' models
+    equal to the bit after the headline, and each rank's launches as the
+    bench's code implies for its steps. Prints each measurement's ms a
+    step beside phase 37's, and the line."""
+    import torch
+
+    from sqtpu_torch import bench
+
+    n_cards = torch.cuda.device_count()
+    per_card = n_cards >= RANKS
+    backend = "nccl" if per_card else "gloo"
+    progress(f"bench over {RANKS} ranks on {n_cards} card(s): "
+             + ("a card each through nccl" if per_card else
+                "both on the one card through gloo; NCCL not run"))
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rc, out, err = run_launcher(
+        ["-m", "sqtpu_torch.bench"], SQTPU_BENCH_BATCH=str(bench.BATCH),
+        SQTPU_BENCH_ITERS=str(BENCH_RANK_ITERS))
+    seconds = time.perf_counter() - t
+    if rc != 0:
+        raise RuntimeError(f"the bench over {RANKS} ranks exited with "
+                           f"{rc}:\n" + err[-4000:])
+    lines = out.splitlines()
+    if len(lines) != 1:
+        raise RuntimeError(f"the bench over {RANKS} ranks printed "
+                           f"{len(lines)} lines:\n" + out[-2000:])
+    line = json.loads(lines[0])
+    print(json.dumps(line), flush=True)
+    check_bench_line(line, bench.BATCH)
+    want_chips = RANKS if per_card else 1
+    if line["detail"]["n_chips"] != want_chips:
+        raise RuntimeError(f"n_chips {line['detail']['n_chips']}, expected "
+                           f"{want_chips}")
+
+    ranks = bench.read_progress(err)
+    if sorted(ranks) != list(range(RANKS)):
+        raise RuntimeError(f"progress of ranks {sorted(ranks)}")
+    cfgs = bench.configs(bench.BATCH)
+    want = bench_launches(bench.WARM_STEPS + BENCH_RANK_ITERS)
+    worst = {}
+    for r, got in ranks.items():
+        if got["backend"] != backend:
+            raise RuntimeError(f"rank {r} ran {got['backend']}, expected "
+                               f"{backend}")
+        if got["launches"] != want:
+            raise RuntimeError(f"rank {r} launched {got['launches']}, "
+                               f"expected {want}")
+        for name in BENCH_RESIDENT:
+            rel = rel_err(got["first"][name], one["steps"][name]["first"])
+            if not rel <= BENCH_RANK_RTOL[cfgs[name].dtype]:
+                raise RuntimeError(
+                    f"rank {r}'s first {name} loss {got['first'][name]!r} "
+                    f"is {rel:.2e} from one rank's "
+                    f"{one['steps'][name]['first']!r}")
+            worst[name] = max(worst.get(name, 0.0), rel)
+    digests = {got["digest"] for got in ranks.values()}
+    if len(digests) != 1:
+        raise RuntimeError(f"the ranks' models differ after the headline: "
+                           f"{digests}")
+    progress(f"bench over {RANKS} ranks ({seconds:.1f} s, {backend}): "
+             f"{line['value']} imgs/s a chip over {want_chips} card(s); "
+             f"launches per rank {want}; first losses against one rank, "
+             "rel: " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+             + "; the models equal after the headline")
+    ms = ranks[0]["ms"]
+    for name, row in one["steps"].items():
+        progress(f"  {name}: {ms[name]:.2f} ms a step over {RANKS} ranks "
+                 f"against {row['ms_per_step']:.2f} on one")
+    return {"line": line, "seconds": seconds, "backend": backend,
+            "n_cards": n_cards, "launches_per_rank": want,
+            "first_loss_rel": worst, "ms_per_step": ms}
+
+
 def registers_of(ptxas: str, entry: str):
     """Registers a kernel got in ``ptxas -v`` output (None if absent)."""
     import re
@@ -4186,6 +4371,8 @@ def main() -> int:
 
     dev = resolve_device("cuda")  # TF32 off for matmuls and convolutions
     card = card_line()
+    n_cards = torch.cuda.device_count()
+    per_card = n_cards >= RANKS  # phases 16-17 also on a card a rank
     progress(f"phase 1 card: {card}; torch {torch.__version__}, "
              f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
              f"{torch.cuda.device_count()} device(s)")
@@ -4240,12 +4427,20 @@ def main() -> int:
     progress("phase 14 trainer ran the c4c recipe twice")
     slab_row = phase_slab(dev)
     progress("phase 15 K6 adds up to K1/K2 and matches its emulation")
-    two_ranks = phase_two_ranks(dev)
+    two_ranks = {"gloo": phase_two_ranks(dev)}
+    if per_card:
+        two_ranks["nccl"] = phase_two_ranks(dev, per_card=True)
+        allreduce_beside(two_ranks)
+    else:
+        progress(f"NCCL not run: {n_cards} card, a card a rank needs "
+                 f"{RANKS}")
     progress(f"phase 16 {RANKS} ranks on the card match one rank in every "
-             "layout")
+             "layout" + (", and on a card each" if per_card else ""))
     launcher = phase_launcher(card)
+    launcher_nccl = phase_launcher(card, per_card=True) if per_card else None
     progress("phase 17 trainer ran through the launcher with --n-grid "
-             f"{RANKS} and resumed")
+             f"{RANKS} and resumed" + (", also with a card a rank (nccl)"
+                                       if per_card else ""))
     phase_closed_loop(truths, dev, EvalConfig(
         ckpt_dir=ROBUST_WEIGHTS, batch_size=BATCH, device="cuda"),
         "robust closed loop", recorded=ROBUST_CLEAN,
@@ -4314,6 +4509,11 @@ def main() -> int:
              "launches its code implies, K4 at N=96/128 sharpness 5 and "
              "K1/K2 at N=128 against their references, the SP pair's "
              "first losses agree")
+    bench_ranks = phase_bench_ranks(bench)
+    progress(f"phase 38 the bench over {RANKS} ranks "
+             f"({bench_ranks['backend']}): bench.py's keys, n_chips, the "
+             "first losses of one rank, the models equal, each rank's "
+             "launches")
     f1_runs = {"ssl1_bf16": bf16["trainer"],
                "ssl1_bf16_profiled": bf16["trainer_profiled"],
                "keras_rot_fixed": krf["trainer"],
@@ -4351,6 +4551,8 @@ def main() -> int:
          "turntable_setting": viz["turntable"]["k3"],
          "launches_turntable": viz["turntable"]["launches"][0],
          "launches_bench": bench["launches"]["K3"],
+         "launches_bench_per_rank":
+             bench_ranks["launches_per_rank"]["K3"],
          **row},
         {"name": "implicit_fwd", "route": "cuda",
          "source": "sqtpu_torch/csrc/implicit.cu",
@@ -4370,6 +4572,8 @@ def main() -> int:
              viz["fits"]["implicit"]["launches"][1],
          "bench_sp128_setting": bench["k1_sp"],
          "launches_bench": bench["launches"]["K1"],
+         "launches_bench_per_rank":
+             bench_ranks["launches_per_rank"]["K1"],
          **fwd_row},
         {"name": "implicit_bwd", "route": "cuda",
          "source": "sqtpu_torch/csrc/implicit.cu",
@@ -4387,6 +4591,8 @@ def main() -> int:
              viz["fits"]["implicit"]["launches"][2],
          "bench_sp128_setting": bench["k2_sp"],
          "launches_bench": bench["launches"]["K2"],
+         "launches_bench_per_rank":
+             bench_ranks["launches_per_rank"]["K2"],
          **bwd_row},
         {"name": "explicit_fused", "route": "cuda",
          "source": "sqtpu_torch/csrc/explicit.cu",
@@ -4403,7 +4609,9 @@ def main() -> int:
          "slerp_batch_setting": viz["rows"]["k4_sweep"],
          **{f"bench_{k}_setting": v for k, v in bench["k4"].items()},
          "bench_bf16_check": bench["k4_bf16"],
-         "launches_bench": bench["launches"]["K4"], **fused_row},
+         "launches_bench": bench["launches"]["K4"],
+         "launches_bench_per_rank":
+             bench_ranks["launches_per_rank"]["K4"], **fused_row},
         {"name": "explicit_fwd", "route": "cuda",
          "source": "sqtpu_torch/csrc/explicit.cu",
          "replaces": "sqtpu/ops/kernels/explicit.py:150",
@@ -4463,7 +4671,10 @@ def main() -> int:
                           "ssl1": trainer["ssl1_run_to_run"],
                           "c4c": c4c["c4c_run_to_run"]},
                       "two_ranks": two_ranks,
-                      "launcher_ssl1_grid": launcher}), flush=True)
+                      "launcher_ssl1_grid": launcher,
+                      "launcher_ssl1_grid_nccl": launcher_nccl,
+                      "bench_ranks": {k: v for k, v in bench_ranks.items()
+                                      if k != "line"}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """Headline benchmark of the port: rotated-SQ training throughput.
 
 Counterpart of the JAX package's ``bench.py``. It measures, in steady
-state on one card, what that bench measures, in the same order and with
-the same ``TrainConfig`` fields (:func:`configs`), and prints exactly one
-JSON line with its keys::
+state, what that bench measures, in the same order and with the same
+``TrainConfig`` fields (:func:`configs`), and prints exactly one JSON line
+with its keys::
 
     python -m sqtpu_torch.bench [--device cuda]
+    python -m torch.distributed.run --standalone --nproc_per_node N \\
+        -m sqtpu_torch.bench [--device cuda]
 
 1. ``value``: the full ResNetSQ train step (bf16 encoder compute, float32
    parameters; the implicit loss at 64³ through K1/K2; Adam) on one
@@ -20,23 +22,43 @@ JSON line with its keys::
 
 Every measurement takes 1 + 2 untimed steps (the first carries cuDNN's
 autotuning, as the JAX bench's first carries its compile), then
-``SQTPU_BENCH_ITERS`` (10) timed ones at batch ``SQTPU_BENCH_BATCH``
-(512) between two fences (:class:`~sqtpu_torch.utils.profiling.StepTimer`
-synchronizes the card), the last loss read with ``.item()``. As in the
-JAX bench, ``final_loss`` is the last online step's loss, and the
-sequence-parallel pair trains on the first min(64, batch) rows; its rate
-counts those rows.
+``SQTPU_BENCH_ITERS`` (10) timed ones at the global batch
+``SQTPU_BENCH_BATCH`` (512) between two fences
+(:class:`~sqtpu_torch.utils.profiling.StepTimer` synchronizes the card),
+the last loss read with ``.item()``. As in the JAX bench, ``final_loss``
+is the last online step's loss, and the sequence-parallel pair trains on
+the first min(64, batch) rows; its rate counts those rows.
+
+Under ``torch.distributed.run`` the N processes are the ranks of the
+data axis (the JAX bench's mesh over its devices), joined as the trainer
+joins them (:func:`sqtpu_torch.parallel.mesh.init_layout`: ``nccl`` when
+each rank has a card of its own, ``gloo`` when ranks share a card or run
+on the CPU). Each step is data-parallel: every rank trains on its rows of
+the global batch, with the BatchNorm moments of the whole batch, the
+global loss and the gradient averaged over the ranks, as
+:func:`~sqtpu_torch.training.loop.make_train_step` does in the trainer.
+Every rank renders the whole resident batch and keeps its rows; the online
+and datagen batches are each rank's own shard, drawn from the online
+stream folded with its rank (``make_batch_dp``'s stream). A measurement's
+seconds are the slowest rank's. ``n_chips`` counts the distinct devices the
+ranks hold (the JAX bench's ``len(jax.devices())``): ranks that share a
+card count it once, CPU ranks count as one device. Every rate is global
+rows × steps ÷ seconds ÷ ``n_chips``; ``imgs_per_sec_total`` is the
+headline's before the division. Rank 0 alone prints the line; a rank that
+fails makes the launcher exit non-zero.
 
 What differs from the JAX bench: there is no ``vs_baseline`` (its 2500
 imgs/s a chip is a target for a TPU v5e-8); ``detail.device`` holds the
-card's ``nvidia-smi`` name and power limit instead. The bench runs in one
-process on one card, so ``n_chips`` is 1, and it raises when started as
-one of several ranks. The kernels' ``nvcc`` builds are cached under
-``sqtpu_torch/build/``, so nothing stands for the JAX bench's compilation
-cache. Seeds come from explicit generators: 0 for the headline model, 1
-for the resident batch, 2 for the online stream, 3 for each later
-configuration's state. Progress goes to stderr. The CPU (``--device
-cpu``) is for tests only: the kernels' plain versions run there.
+card's ``nvidia-smi`` name and power limit instead. The kernels' ``nvcc``
+builds are cached under ``sqtpu_torch/build/``, so nothing stands for the
+JAX bench's compilation cache. Seeds come from explicit generators: 0 for
+the headline model, 1 for the resident batch, 2 for the online stream, 3
+for each later configuration's state. Progress goes to stderr, each line
+prefixed with the rank: the world and its backend, whether ranks share a
+card, each measurement's first output (the first step's loss), over
+several ranks the models' digest after the headline, and each rank's
+kernel launches. The CPU (``--device cpu``) is for tests only: the
+kernels' plain versions run there.
 """
 
 from __future__ import annotations
@@ -44,6 +66,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import socket
 import sys
 import time
 
@@ -98,8 +122,10 @@ def seeded_model(cfg, seed: int, device: torch.device):
     return init_like_flax(model, generator=gen).to(device)
 
 
-def _log(msg: str) -> None:
-    print(f"bench: {msg}", file=sys.stderr, flush=True)
+def _log(rank: int, msg: str) -> None:
+    # one write a line: the ranks share the launcher's stderr
+    sys.stderr.write(f"bench[{rank}]: {msg}\n")
+    sys.stderr.flush()
 
 
 def _timed(fn, iters: int, device: torch.device) -> dict:
@@ -138,57 +164,137 @@ def resident_batch(device: torch.device, batch: int = BATCH) -> tuple:
     return make_batch(gen, batch, IMAGE, "hard")
 
 
+def check_layouts(batch: int, world: int) -> None:
+    """Raise ``ValueError`` unless ``world`` ranks on the data axis fit
+    every configuration (``utils.config.check_layout``): the batch and the
+    sequence-parallel pair's batch of SP_BATCH each a multiple of the
+    world."""
+    from sqtpu_torch.utils.config import check_layout
+
+    for cfg in configs(batch).values():
+        check_layout(cfg, world)
+
+
+def batch_stream(generator: torch.Generator, batch: int, layout):
+    """A function that draws this rank's rows of the next global batch of
+    ``batch`` (images, labels), rendered by K3: ``make_batch(generator,
+    batch)`` on one rank; over the data axis, ``make_batch`` of this
+    rank's share from ``fold_in(generator, data index)``, folded once, so
+    that each rank draws a stream of its own (the first batch is
+    ``make_batch_dp``'s)."""
+    from sqtpu_torch.data.synthetic import make_batch
+    from sqtpu_torch.parallel.sharded_losses import fold_in
+
+    if layout.n_data == 1:
+        return lambda: make_batch(generator, batch, IMAGE, "hard")
+    local = fold_in(generator, layout.data_index)
+    rows = layout.rows(batch)
+    return lambda: make_batch(local, rows.stop - rows.start, IMAGE, "hard")
+
+
 def measure(device: torch.device, batch: int = BATCH,
             iters: int = ITERS) -> tuple[dict, dict]:
-    """The bench's measurements on ``device``: the dict :func:`main`
-    prints, and each measurement's numbers by name (``_timed``'s, its
-    rows and imgs/s)."""
-    from sqtpu_torch.data.synthetic import make_batch
+    """The bench's measurements on ``device``, over the launcher's ranks
+    when it runs under ``torch.distributed.run``: the dict :func:`main`
+    prints, and each measurement's numbers by name (``_timed``'s with the
+    slowest rank's seconds and the largest peak memory, its global rows
+    and global imgs/s). Every rank returns both; the process group it
+    joined is left on every path out."""
+    from sqtpu_torch.parallel.mesh import init_layout, shutdown
+
+    layout = init_layout(1, device)
+    try:
+        return _measure(layout, batch, iters)
+    finally:
+        if layout.world > 1:  # the group init_layout joined
+            shutdown()
+
+
+def _measure(layout, batch: int, iters: int) -> tuple[dict, dict]:
+    from sqtpu_torch.models.resnet import use_global_batch_stats
+    from sqtpu_torch.ops.kernels import launch_counts
+    from sqtpu_torch.parallel.mesh import gather_objects
     from sqtpu_torch.training.loop import make_train_step
     from sqtpu_torch.training.state import create_train_state
     from sqtpu_torch.utils.profiling import card_line
 
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise RuntimeError("the bench runs in one process on one card; "
-                           "start it without torch.distributed.run")
+    check_layouts(batch, layout.world)
+    device, rank = layout.device, layout.rank
+    # the distinct devices the ranks hold: one per card, one for the CPU
+    n_chips = len(set(gather_objects(
+        (socket.gethostname(), device.type, device.index), layout)))
+    if layout.world == 1:
+        sharing = "one rank"
+    elif device.type == "cpu":
+        sharing = "ranks on the CPU"
+    elif n_chips < layout.world:
+        sharing = "ranks share a card"
+    else:
+        sharing = "one card per rank"
+    _log(rank, f"world {layout.world}, backend "
+         f"{layout.backend or 'none'}, {n_chips} device(s): {sharing}; "
+         f"device {device}")
     record = {}
     cfgs = configs(batch)
 
+    def model(cfg, seed):
+        net = seeded_model(cfg, seed, device)
+        use_global_batch_stats(net, layout.data_group)
+        return net
+
     def timed(name, fn, rows):
+        """Time ``fn``; ``rows`` of the global batch a step. Returns the
+        rate a chip."""
         t = time.perf_counter()
         res = _timed(fn, iters, device)
+        ranks = gather_objects((res["seconds"], res["peak_bytes"]), layout)
+        res["seconds"] = max(s for s, _ in ranks)
+        if res["peak_bytes"] is not None:
+            res["peak_bytes"] = max(p for _, p in ranks)
         res["rows"] = rows
         res["imgs_per_sec"] = rows * iters / res["seconds"]
         record[name] = res
-        _log(f"{name}: {res['imgs_per_sec']:.1f} imgs/s "
-             f"({1e3 * res['seconds'] / iters:.2f} ms a step, "
+        per_chip = res["imgs_per_sec"] / n_chips
+        _log(rank, f"{name}: first {res['first']!r}; {per_chip:.1f} imgs/s "
+             f"a chip ({1e3 * res['seconds'] / iters:.2f} ms a step, "
              f"{time.perf_counter() - t:.1f} s with warm-up; peak "
              f"{res['peak_bytes']} bytes)")
-        return res["imgs_per_sec"]
+        return per_chip
 
     # the headline: bf16 encoder compute, the implicit loss through K1/K2,
-    # on one resident batch of real depth maps rendered once
+    # on one resident batch of real depth maps rendered once; each rank
+    # keeps its rows
     cfg = cfgs["headline"]
-    state = create_train_state(seeded_model(cfg, MODEL_SEED, device), cfg)
-    step = make_train_step(state, cfg)
+    state = create_train_state(model(cfg, MODEL_SEED), cfg)
+    step = make_train_step(state, cfg, layout)
     imgs, labels = resident_batch(device, batch)
-    per_chip = timed("headline", lambda i: step(imgs, labels), batch)
-    point_evals_per_sec = per_chip * cfg.render_size ** 3
+    mine = layout.rows(batch)
+    x, y = imgs[mine], labels[mine]
+    per_chip = timed("headline", lambda i: step(x, y), batch)
+    total = record["headline"]["imgs_per_sec"]
+    if layout.world > 1:
+        from sqtpu_torch.parallel.dryrun import state_digest
 
-    # online: a fresh batch rendered on the card (K3) before each step
+        _log(rank, f"model after the headline: sha256 "
+             f"{state_digest(state.model)}")
+
+    # online: a fresh batch rendered on the card (K3) before each step,
+    # each rank its own shard
     gen = torch.Generator(device=device)
     gen.manual_seed(ONLINE_SEED)
-    online = timed("online", lambda i: step(*make_batch(
-        gen, batch, IMAGE, "hard")), batch)
+    draw = batch_stream(gen, batch, layout)
+    online = timed("online", lambda i: step(*draw()), batch)
     final_loss = record["online"]["last"]
     del state, step  # free the headline's model and Adam state
 
     def time_step(name, rows=batch):
         c = cfgs[name]
-        st = create_train_state(seeded_model(c, STATE_SEED, device), c)
-        step_x = make_train_step(st, c)
-        x, y = imgs[:rows], labels[:rows]
-        return timed(name, lambda i: step_x(x, y), x.shape[0])
+        st = create_train_state(model(c, STATE_SEED), c)
+        step_x = make_train_step(st, c, layout)
+        n = min(rows, batch)
+        share = layout.rows(n)
+        x, y = imgs[share], labels[share]
+        return timed(name, lambda i: step_x(x, y), n)
 
     rates = {name: time_step(name) for name in (
         "explicit96", "explicit128", "explicit128_sharp20",
@@ -197,8 +303,8 @@ def measure(device: torch.device, batch: int = BATCH,
         rates[name] = time_step(name, SP_BATCH)
 
     # data generation alone (K3), from the online stream
-    datagen = timed("datagen", lambda i: make_batch(
-        gen, batch, IMAGE, "hard")[0], batch)
+    datagen = timed("datagen", lambda i: draw()[0], batch)
+    _log(rank, f"launches {json.dumps(launch_counts())}")
 
     line = {
         "metric": "train_imgs_per_sec_per_chip",
@@ -206,10 +312,11 @@ def measure(device: torch.device, batch: int = BATCH,
         "unit": "256x256 depth imgs/sec/chip (full train step, implicit "
                 "loss @64^3)",
         "detail": {
-            "imgs_per_sec_total": round(per_chip, 2),
-            "n_chips": 1,
+            "imgs_per_sec_total": round(total, 2),
+            "n_chips": n_chips,
             "batch": batch,
-            "loss_point_evals_per_sec": round(point_evals_per_sec, 1),
+            "loss_point_evals_per_sec": round(
+                total * cfg.render_size ** 3, 1),
             "final_loss": final_loss,
             "online_imgs_per_sec_per_chip": round(online, 2),
             "online_note": "data generation on the card (K3, hard "
@@ -242,6 +349,31 @@ def measure(device: torch.device, batch: int = BATCH,
     return line, record
 
 
+def read_progress(text: str) -> dict:
+    """The ranks' progress lines in ``text`` (a launched run's stderr),
+    read back by rank: ``backend``, each measurement's ``first`` output
+    and ``ms`` a step, the models' ``digest`` after the headline (several
+    ranks) and the kernel ``launches``."""
+    ranks = {}
+    for line in text.splitlines():
+        m = re.match(r"bench\[(\d+)\]: (.*)$", line)
+        if not m:
+            continue
+        rank = ranks.setdefault(int(m[1]), {"first": {}, "ms": {}})
+        msg = m[2]
+        step = re.match(r"(\w+): first (\S+); .*\(([\d.]+) ms a step", msg)
+        if step:
+            rank["first"][step[1]] = float(step[2])
+            rank["ms"][step[1]] = float(step[3])
+        elif msg.startswith("world "):
+            rank["backend"] = re.search(r"backend (\w+)", msg)[1]
+        elif msg.startswith("model after the headline: sha256 "):
+            rank["digest"] = msg.split()[-1]
+        elif msg.startswith("launches "):
+            rank["launches"] = json.loads(msg[len("launches "):])
+    return ranks
+
+
 def run(device: torch.device, batch: int = BATCH,
         iters: int = ITERS) -> dict:
     """The bench's measurements on ``device``: the dict :func:`main`
@@ -252,11 +384,21 @@ def run(device: torch.device, batch: int = BATCH,
 def main(argv=None) -> dict:
     from sqtpu_torch.utils.config import resolve_device
 
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(
+        description=__doc__.splitlines()[0],
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+        epilog="over several ranks, one per card (nccl) or sharing one "
+               "(gloo):\n  python -m torch.distributed.run --standalone "
+               "--nproc_per_node N -m sqtpu_torch.bench\nthe batch "
+               "(SQTPU_BENCH_BATCH) is global and splits over the ranks; "
+               "n_chips counts\nthe distinct devices the ranks hold (ranks "
+               "on one card, or on the CPU, count one)\nand every rate is "
+               "a chip's; rank 0 alone prints the line.")
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
     args = ap.parse_args(argv)
     line = run(resolve_device(args.device))
-    print(json.dumps(line), flush=True)
+    if int(os.environ.get("RANK", "0")) == 0:  # the launcher's rank
+        print(json.dumps(line), flush=True)
     return line
 
 

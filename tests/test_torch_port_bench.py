@@ -180,12 +180,6 @@ def test_cpu_run_prints_one_line_of_finite_rates(cpu_run):
     assert modules == ["MODULES "]
 
 
-def test_bench_refuses_several_ranks(monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(RuntimeError, match="one process on one card"):
-        bench.run(torch.device("cpu"), 2, 1)
-
-
 def test_resident_batch_is_its_seed_s():
     cpu = torch.device("cpu")
     (a, la), (b, lb) = (bench.resident_batch(cpu, 2) for _ in range(2))
