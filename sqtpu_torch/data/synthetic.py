@@ -24,6 +24,7 @@ from sqtpu_torch.ops import quaternion as quat
 from sqtpu_torch.ops.kernels import render_hard_auto
 from sqtpu_torch.ops.losses import canonicalize_gauge
 from sqtpu_torch.ops.render import render_depth_soft_batch
+from sqtpu_torch.utils.profiling import span
 
 
 def _uniform(shape, lo, hi, generator, dtype, device):
@@ -38,18 +39,19 @@ def sample_params(batch: int, generator: torch.Generator,
     applies to rotation data only: ``iso`` data keep the reference's
     independent sizes under the one fixed view (no rotation ambiguity to
     resolve). ``device`` defaults to the generator's device."""
-    device = generator.device if device is None else device
-    a = _uniform((batch, 3), 25 / 255, 75 / 255, generator, dtype, device)
-    e = _uniform((batch, 2), 0.1, 1.0, generator, dtype, device)
-    t = (128.0 + _uniform((batch, 3), -40.0, 40.0, generator, dtype,
-                          device)) / 255.0
-    if iso:
-        q = torch.tensor([1.0, 1.0, 1.0, 0.0], dtype=dtype, device=device)
-        q = (q / math.sqrt(3.0)).expand(batch, 4)
-        return torch.cat([a, e, t, q], dim=-1)
-    q = quat.random_uniform((batch,), generator, dtype, device)
-    p = torch.cat([a, e, t, q], dim=-1)
-    return canonicalize_gauge(p) if canonical else p
+    with span("data.sample"):
+        device = generator.device if device is None else device
+        a = _uniform((batch, 3), 25 / 255, 75 / 255, generator, dtype, device)
+        e = _uniform((batch, 2), 0.1, 1.0, generator, dtype, device)
+        t = (128.0 + _uniform((batch, 3), -40.0, 40.0, generator, dtype,
+                              device)) / 255.0
+        if iso:
+            q = torch.tensor([1.0, 1.0, 1.0, 0.0], dtype=dtype, device=device)
+            q = (q / math.sqrt(3.0)).expand(batch, 4)
+            return torch.cat([a, e, t, q], dim=-1)
+        q = quat.random_uniform((batch,), generator, dtype, device)
+        p = torch.cat([a, e, t, q], dim=-1)
+        return canonicalize_gauge(p) if canonical else p
 
 
 def make_batch(generator: torch.Generator, batch: int, image_size: int = 256,
@@ -63,17 +65,18 @@ def make_batch(generator: torch.Generator, batch: int, image_size: int = 256,
     renderer at τ 1.5, sharpness 260. ``rows`` keeps only those rows of
     the batch and renders only them: a rank's share of the global batch,
     drawn from the same stream (each image is rendered on its own)."""
-    p = sample_params(batch, generator, iso=iso)
-    if rows is not None:
-        p = p[rows]
-    if renderer == "hard":
-        imgs = render_hard_auto(p, image_size, n_sweep=48, n_bisect=12,
-                                quantize=True)
-    elif renderer == "soft":
-        imgs = render_depth_soft_batch(p, image_size, 1.5, 260.0)
-    else:
-        raise ValueError(f"unknown renderer {renderer}")
-    return imgs[..., None], p
+    with span("data.make_batch"):
+        p = sample_params(batch, generator, iso=iso)
+        if rows is not None:
+            p = p[rows]
+        if renderer == "hard":
+            imgs = render_hard_auto(p, image_size, n_sweep=48, n_bisect=12,
+                                    quantize=True)
+        elif renderer == "soft":
+            imgs = render_depth_soft_batch(p, image_size, 1.5, 260.0)
+        else:
+            raise ValueError(f"unknown renderer {renderer}")
+        return imgs[..., None], p
 
 
 # the saved pairs' prediction render: the full sweep, 24 bisections

@@ -57,6 +57,7 @@ from sqtpu_torch.utils.checkpoint import (
 from sqtpu_torch.utils.config import (
     EvalConfig, TrainConfig, check_slice, parse_cli, resolve_device,
 )
+from sqtpu_torch.utils.profiling import span
 
 # eval-quality sweep of the ground-truth renderer (sqtpu/evaluate.py:157)
 EVAL_SWEEP, EVAL_BISECT = 64, 16
@@ -96,8 +97,10 @@ def load_eval_state(cfg, device: torch.device) -> torch.nn.Module:
 @torch.inference_mode()
 def predict(model: torch.nn.Module, imgs: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 1) or (B, H, W) images -> (B, k) params (eval mode; k
-    the model's width, 12 for the full family)."""
-    return params_vector(model(imgs))
+    the model's width, 12 for the full family); the span
+    ``eval.predict`` (:mod:`sqtpu_torch.utils.profiling`)."""
+    with span("eval.predict"):
+        return params_vector(model(imgs))
 
 
 def classical_recover_fn(cfg: EvalConfig):

@@ -29,6 +29,7 @@ import torch
 from sqtpu_torch.ops import geometry
 from sqtpu_torch.ops import quaternion as quat
 from sqtpu_torch.ops.render import render_depth_hard_batch
+from sqtpu_torch.utils.profiling import span
 
 PAR_STRIDE = 24  # floats per sample in the packed frame scalars
 
@@ -89,7 +90,8 @@ def pack_frames(p: torch.Tensor, n_sweep: int) -> torch.Tensor:
 def render_depth_hard_cuda(p: torch.Tensor, image_size: int = 256,
                            n_sweep: int = 48, n_bisect: int = 12,
                            quantize: bool = True) -> torch.Tensor:
-    """(B, 12) params -> (B, S, S) float32 depth maps, image layout."""
+    """(B, 12) params -> (B, S, S) float32 depth maps, image layout; the
+    span ``ops.render_hard`` (:mod:`sqtpu_torch.utils.profiling`)."""
     global launches
     if p.ndim != 2 or p.shape[-1] != geometry.N_PARAMS:
         raise ValueError(f"params must be (B, 12), got {tuple(p.shape)}")
@@ -99,18 +101,19 @@ def render_depth_hard_cuda(p: torch.Tensor, image_size: int = 256,
         raise ValueError(
             f"need image_size >= 2, n_sweep >= 2, n_bisect >= 0; got "
             f"{image_size}, {n_sweep}, {n_bisect}")
-    if p.device.type == "cpu":
-        return render_depth_hard_batch(p, image_size, n_bisect=n_bisect,
-                                       quantize=quantize, n_sweep=n_sweep)
-    if p.device.type != "cuda":
-        raise ValueError(f"no kernel for device {p.device}")
-    if not 0 < p.shape[0] <= 65535:
-        raise ValueError(f"batch {p.shape[0]} outside the kernel's grid "
-                         "(1..65535)")
-    out = _launch(pack_frames(p, n_sweep), image_size, n_sweep, n_bisect,
-                  quantize)
-    launches += 1
-    return out
+    with span("ops.render_hard"):
+        if p.device.type == "cpu":
+            return render_depth_hard_batch(p, image_size, n_bisect=n_bisect,
+                                           quantize=quantize, n_sweep=n_sweep)
+        if p.device.type != "cuda":
+            raise ValueError(f"no kernel for device {p.device}")
+        if not 0 < p.shape[0] <= 65535:
+            raise ValueError(f"batch {p.shape[0]} outside the kernel's grid "
+                             "(1..65535)")
+        out = _launch(pack_frames(p, n_sweep), image_size, n_sweep, n_bisect,
+                      quantize)
+        launches += 1
+        return out
 
 
 def _launch(par: torch.Tensor, image_size: int, n_sweep: int,

@@ -1,7 +1,8 @@
 """Evaluation metrics: voxel IoU, the IoU tuple and rotation errors.
 
 Counterpart of ``sqtpu/ops/metrics.py`` (:25-138). The IoU applies no
-parameter clamp and no zero guard, as in the reference.
+parameter clamp and no zero guard, as in the reference. ``iou_full`` and
+the occupancy grids are spans (:mod:`sqtpu_torch.utils.profiling`).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 from sqtpu_torch.ops import geometry
 from sqtpu_torch.ops import quaternion as quat
 from sqtpu_torch.ops.losses import _flip_orbit, param_gauge_orbit
+from sqtpu_torch.utils.profiling import span
 
 # Samples whose voxel grids are built at once: bounds the working set to
 # a few (chunk, N, N, N) fp32 grids (0.5 GB each at N = 128).
@@ -20,10 +22,12 @@ _IOU_CHUNK = 16
 
 
 def _binary_voxels(p: torch.Tensor, render_size: int) -> torch.Tensor:
-    """(B, N, N, N) occupancies F^(e1) <= 1, no clamp, no guard."""
-    ax = geometry.make_axis(render_size, "iou", dtype=p.dtype,
-                            device=p.device)
-    return geometry.field_grid(ax, ax, ax, p, guard=False) <= 1.0
+    """(B, N, N, N) occupancies F^(e1) <= 1, no clamp, no guard; the span
+    ``metrics.voxels``."""
+    with span("metrics.voxels"):
+        ax = geometry.make_axis(render_size, "iou", dtype=p.dtype,
+                                device=p.device)
+        return geometry.field_grid(ax, ax, ax, p, guard=False) <= 1.0
 
 
 def iou_counts(true_p: torch.Tensor, pred_p: torch.Tensor,
@@ -88,21 +92,23 @@ def iou_full(true_p: torch.Tensor, pred_p: torch.Tensor,
              render_size: int = 64) -> torch.Tensor:
     """(B, 7) per sample: [rot-isolated IoU, full IoU, angle, sym-angle,
     gauge-angle, gauge rot-IoU, gauge-swapped flag]; see the JAX
-    package's ``iou_full`` for what each column isolates."""
-    a_t, e_t, t_t, q_t = geometry.split_params(true_p)
-    q_p = pred_p[..., 8:12]
-    rot_only = torch.cat([a_t, e_t, t_t, q_p], dim=-1)
-    aligned, swapped = gauge_align(true_p, pred_p)
-    rot_only_g = torch.cat([aligned[..., :8], q_p], dim=-1)
+    package's ``iou_full`` for what each column isolates. The span
+    ``metrics.iou_full``, its occupancy grids ``metrics.voxels``."""
+    with span("metrics.iou_full"):
+        a_t, e_t, t_t, q_t = geometry.split_params(true_p)
+        q_p = pred_p[..., 8:12]
+        rot_only = torch.cat([a_t, e_t, t_t, q_p], dim=-1)
+        aligned, swapped = gauge_align(true_p, pred_p)
+        rot_only_g = torch.cat([aligned[..., :8], q_p], dim=-1)
 
-    iou_rot = iou(true_p, rot_only, render_size, reduce=False)
-    iou_all = iou(true_p, pred_p, render_size, reduce=False)
-    iou_rot_g = iou(aligned, rot_only_g, render_size, reduce=False)
-    ang = angle_error(q_t, q_p)
-    ang_sym = angle_error_sym(q_t, q_p)
-    ang_gauge = angle_error(aligned[..., 8:12], q_p)
-    return torch.stack([iou_rot, iou_all, ang, ang_sym, ang_gauge,
-                        iou_rot_g, swapped.to(true_p.dtype)], dim=-1)
+        iou_rot = iou(true_p, rot_only, render_size, reduce=False)
+        iou_all = iou(true_p, pred_p, render_size, reduce=False)
+        iou_rot_g = iou(aligned, rot_only_g, render_size, reduce=False)
+        ang = angle_error(q_t, q_p)
+        ang_sym = angle_error_sym(q_t, q_p)
+        ang_gauge = angle_error(aligned[..., 8:12], q_p)
+        return torch.stack([iou_rot, iou_all, ang, ang_sym, ang_gauge,
+                            iou_rot_g, swapped.to(true_p.dtype)], dim=-1)
 
 
 def param_mae(pred: torch.Tensor, true: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,8 @@ a torchvision-layout resnet18 state_dict into the encoder
 model with flax's ``dtype`` (:mod:`sqtpu_torch.models.resnet`: the
 parameters, the optimizer and the checkpoints stay float32);
 ``profile_dir`` wraps the epochs in a ``torch.profiler`` trace
-(:mod:`sqtpu_torch.utils.profiling`).
+(:mod:`sqtpu_torch.utils.profiling`), which carries the train step's
+spans (``train.*``) and those of the data (``data.*``) and the metrics.
 One train step runs the model in train mode, the loss (on the card K1/K2
 through ``implicit_loss_auto``, K4 through ``explicit_loss_auto``), the
 backward and the Adam update; a validation step runs the model in eval mode
@@ -89,7 +90,7 @@ from sqtpu_torch.utils.config import (
     MODEL_DTYPES, TrainConfig, check_slice, resolve_device,
 )
 from sqtpu_torch.utils.logging import MetricLogger, NanGuard, Throughput
-from sqtpu_torch.utils.profiling import trace
+from sqtpu_torch.utils.profiling import span, trace
 
 # Offsets of the random streams under one seed (an epoch adds its index);
 # the augmentation's are far from the others' epochs.
@@ -316,30 +317,40 @@ def make_train_step(state: TrainState, cfg: TrainConfig,
     put back, and no backward or optimizer step runs (parameters and Adam
     moments stay as they were). That check reads the loss on the host
     once per step; the loss is the global one, so every rank skips or
-    none does."""
+    none does.
+
+    The step marks its phases as spans (:mod:`sqtpu_torch.utils.profiling`):
+    ``train.step`` around the whole, and in it ``train.forward``,
+    ``train.loss``, ``train.backward`` and ``train.optimizer``, which
+    tile it; the recompute of ``remat`` falls in ``train.backward``."""
     model = state.model
     layout = layout or Layout()
     skip_nonfinite = cfg.nan_policy == "skip"
 
     def step(imgs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        model.train()
-        imgs = imgs.to(torch.float32)
-        if skip_nonfinite:
-            saved = [b.detach().clone() for b in model.buffers()]
-        state.optimizer.zero_grad(set_to_none=True)
-        pred = params_vector(model(imgs, remat=cfg.remat))
-        loss = _compute_loss(cfg, pred, imgs, labels, layout)
-        if skip_nonfinite and not bool(torch.isfinite(loss)):
-            with torch.no_grad():
-                for b, s in zip(model.buffers(), saved):
-                    b.copy_(s)
+        with span("train.step"):
+            with span("train.forward"):
+                model.train()
+                imgs = imgs.to(torch.float32)
+                if skip_nonfinite:
+                    saved = [b.detach().clone() for b in model.buffers()]
+                state.optimizer.zero_grad(set_to_none=True)
+                pred = params_vector(model(imgs, remat=cfg.remat))
+            with span("train.loss"):
+                loss = _compute_loss(cfg, pred, imgs, labels, layout)
+            if skip_nonfinite and not bool(torch.isfinite(loss)):
+                with torch.no_grad():
+                    for b, s in zip(model.buffers(), saved):
+                        b.copy_(s)
+                return loss.detach()
+            with span("train.backward"):
+                loss.backward()
+                average_gradients(model.parameters(), layout)
+                zero_frozen_grads(model, cfg)
+            with span("train.optimizer"):
+                state.apply_gradients()
+                broadcast_state(model.buffers(), layout)
             return loss.detach()
-        loss.backward()
-        average_gradients(model.parameters(), layout)
-        zero_frozen_grads(model, cfg)
-        state.apply_gradients()
-        broadcast_state(model.buffers(), layout)
-        return loss.detach()
 
     return step
 

@@ -835,11 +835,10 @@ def test_bf16_keras_net_trains_through_k4_k5_on_card(cuda_device):
 
 
 @pytest.mark.gpu
-def test_step_timer_and_memory_stats_on_card(cuda_device):
+def test_step_timer_on_card(cuda_device):
     """``StepTimer`` on the card fences each time with a synchronize, so a
-    step's time covers its kernels; ``device_memory_stats`` reads each
-    card's allocator, which counts the tensors allocated."""
-    from sqtpu_torch.utils.profiling import StepTimer, device_memory_stats
+    step's time covers its kernels."""
+    from sqtpu_torch.utils.profiling import StepTimer
 
     t = StepTimer(cuda_device)
     x = torch.ones((4096, 4096), device=cuda_device)
@@ -848,10 +847,6 @@ def test_step_timer_and_memory_stats_on_card(cuda_device):
         x = x @ x / 4096
     dt = t.stop()
     assert dt > 0 and t.times == [dt]
-    stats = device_memory_stats()
-    assert set(stats) == {f"cuda:{i}"
-                          for i in range(torch.cuda.device_count())}
-    assert stats["cuda:0"]["allocated_bytes.all.current"] >= x.numel() * 4
 
 
 @pytest.mark.gpu
