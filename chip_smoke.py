@@ -119,7 +119,15 @@ user calls:
   ranks on the one card (gloo): its line's keys and ``n_chips``, each
   rank's first-step losses over the resident rows against phase 37's,
   the ranks' models equal to the bit after the headline, each rank's
-  launches, and each measurement's ms a step beside phase 37's.
+  launches, and each measurement's ms a step beside phase 37's;
+* the voxel IoU kernel K7 (phase 39; phase 4 scores through it too, one
+  launch a batch): its intersection and union counts equal the plain
+  path's for every sample and pair, ``iou_full``'s three pairs at N=128
+  on three batches of 125 sampled as the eval cell samples them with the
+  c4 weights' predictions, validation's ``iou`` at N=64, float64 at
+  N=32 and rows that stress its z cull; one launch an ``iou_full``,
+  ``iou`` or ``iou_counts`` call; its time beside its bound and the
+  plain path's.
 
 One flushed progress line per phase, with the elapsed seconds; no failure
 is caught. The bench prints its JSON lines among them (phases 37 and
@@ -193,10 +201,11 @@ LOSS_B, LOSS_N, TAU, SHARP = 512, 64, 1.5, 260.0
 VALUE_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 5e-3, 1e-6
 IMG_GRAD_RTOL = 1e-4
-KERNEL_SOURCES = ("hardrender", "implicit", "explicit")
+KERNEL_SOURCES = ("hardrender", "implicit", "explicit", "voxel_iou")
 KERNEL_ENTRIES = ("hardrender_kernel", "implicit_fwd_kernel",
                   "implicit_bwd_kernel", "explicit_fwd_kernel",
-                  "explicit_fused_kernel", "sum_partials")
+                  "explicit_fused_kernel", "sum_partials",
+                  "voxel_iou_kernel")
 
 # The explicit loss at the c4c recipe's shape: batch 256, 128³, sharp 20.
 # Tolerances are the JAX package's (tests/test_pallas_explicit.py:46-49,
@@ -1414,6 +1423,14 @@ def counts() -> tuple:
     return tuple(got[k] for k in KERNEL_COUNTS)
 
 
+def counts_k7() -> int:
+    """Launches of K7 since the last reset (one an ``iou_full``, ``iou``
+    or ``iou_counts`` call on the card)."""
+    from sqtpu_torch.ops.kernels import launch_counts
+
+    return launch_counts()["K7"]
+
+
 def reset_counts() -> None:
     from sqtpu_torch.ops.kernels import reset_launches
 
@@ -1925,7 +1942,7 @@ def phase_launcher(card: str, per_card: bool = False) -> dict:
             for r in records[first:]:
                 k = r["epoch"] - first + 1   # epochs since the counters began
                 want = {"K3": k * (steps + val), "K6": k * (steps + val),
-                        "K6_bwd": k * steps}
+                        "K6_bwd": k * steps, "K7": k * val}
                 for rank, stats in enumerate(r["ranks"]):
                     got = {a: b for a, b in stats["launches"].items() if b}
                     if got != want:
@@ -4104,7 +4121,7 @@ def bench_launches(steps: int) -> dict:
     step; K4 once a step of the four ``explicit_sym`` configurations; K5,
     K6: none (no validation, no grid axis)."""
     return {"K3": 1 + 2 * steps, "K1": 3 * steps, "K2": 3 * steps,
-            "K4": 4 * steps, "K5": 0, "K6": 0, "K6_bwd": 0}
+            "K4": 4 * steps, "K5": 0, "K6": 0, "K6_bwd": 0, "K7": 0}
 
 
 def phase_bench(dev) -> dict:
@@ -4136,13 +4153,14 @@ def phase_bench(dev) -> dict:
 
     The bench's line is printed as a line of its own."""
     from sqtpu_torch import bench
+    from sqtpu_torch.ops.kernels import launch_counts
 
     steps = bench.WARM_STEPS + bench.ITERS
     reset_counts()
     t0 = time.perf_counter()
     line, record = bench.measure(dev, bench.BATCH, bench.ITERS)
     seconds = time.perf_counter() - t0
-    launches = dict(zip(KERNEL_COUNTS, counts()))
+    launches = launch_counts()
     print(json.dumps(line), flush=True)
 
     check_bench_line(line, bench.BATCH)
@@ -4318,6 +4336,182 @@ def phase_bench_ranks(one: dict) -> dict:
             "first_loss_rel": worst, "ms_per_step": ms}
 
 
+# Phase 39: the voxel IoU kernel K7. The eval cell's first sampled
+# batches (a seed above 2**31, as the benchmark's are), the c4 weights'
+# predictions of their K3 images; validation's IoU at N=64; the float64
+# IoU of viz's fit frames; rows that stress the z cull.
+K7_SEED = 2**31 + 2020
+K7_BATCHES = 3
+K7_ADVERSARIAL_SIZES = (16, 64, 128)
+
+
+def k7_adversarial(truth, ax):
+    """(32, 12) rows that stress K7's z cull, made from 32 truths and the
+    lattice axis ``ax``: the first 24 inside the range its proof covers
+    (exponents 0.1 and 1.0 and the range's ends 1e-3 and 100, boxes cut
+    by the lattice's faces, box faces exactly on lattice coordinates with
+    the identity rotation so that u = ±1 there, negative sizes), the last
+    8 outside it (a = 0, e1 = 0, e2 < 0, NaN, ±inf, e1 > 100, e2 < 1e-3),
+    which the kernel evaluates on every voxel."""
+    import torch
+
+    p = truth[:32].clone()
+    n = ax.shape[0]
+    p[0:4, 3:5] = 0.1
+    p[4:8, 3:5] = 1.0
+    p[8:12, 0:3] = torch.tensor([0.7, 0.9, 0.6], dtype=p.dtype)
+    p[12:16, 5:8] = torch.tensor([[0.0, 0.5, 1.0], [1.0, 0.0, 0.5],
+                                  [0.5, 1.0, 0.0], [1.0, 1.0, 1.0]],
+                                 dtype=p.dtype)
+    j, k = n // 3, n // 3 + n // 4
+    p[16:20, 8:12] = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=p.dtype)
+    p[16:20, 5:8] = ax[j]
+    p[16:20, 0:3] = ax[k] - ax[j]
+    p[16:20, 3:5] = torch.tensor([[0.1, 0.1], [1.0, 1.0], [0.5, 0.3],
+                                  [0.1, 1.0]], dtype=p.dtype)
+    p[20:22, 0] = -p[20:22, 0]
+    p[22, 3:5] = 1e-3
+    p[23, 3:5] = 100.0
+    p[24, 0] = 0.0
+    p[25, 3] = 0.0
+    p[26, 4] = -0.5
+    p[27, 2] = float("nan")
+    p[28, 9] = float("inf")
+    p[29, 6] = float("-inf")
+    p[30, 3] = 150.0
+    p[31, 4] = 5e-4
+    return p
+
+
+def k7_plain(fields, pairs, n: int):
+    """The plain path's (B, P, 2) counts of ``pairs`` (K7's yardstick)."""
+    import torch
+
+    from sqtpu_torch.ops import metrics
+
+    return torch.stack([torch.stack(metrics.plain_iou_counts(
+        fields[f], fields[g], n), dim=-1) for f, g in pairs], dim=1)
+
+
+def k7_check(what: str, fields, pairs, n: int):
+    """K7's counts of ``pairs`` of ``fields`` at N=``n``; raises unless
+    every count equals the plain path's."""
+    from sqtpu_torch.ops.kernels import voxel_iou as V
+
+    got = V.voxel_iou_cuda(fields, pairs, n)
+    want = k7_plain(fields, pairs, n)
+    off = int((got != want).sum())
+    if off:
+        raise RuntimeError(f"K7 {what}: {off} of {want.numel()} counts "
+                           "differ from the plain path's")
+    return got
+
+
+def phase_voxel_iou(dev) -> dict:
+    """Phase 39: K7 (``csrc/voxel_iou.cu``) on the card, held:
+
+    1. its intersection and union counts equal the plain path's, every
+       sample and pair: ``iou_full``'s three pairs of its five fields at
+       N=128 on K7_BATCHES batches of 125 sampled as the eval cell samples
+       them, with the c4 weights' predictions of their K3 images, and
+       ``iou_full``'s IoU columns equal the plain counts' quotients;
+       validation's ``iou`` pair at N=64 on the same batches; the float64
+       instantiation at N=32; bfloat16 predictions against float32 truths
+       (a bf16 net's validation) at N=32 and 64; and the adversarial rows of
+       :func:`k7_adversarial` at N = 16, 64 and 128;
+    2. it launches once per ``iou_full``, ``iou`` and ``iou_counts`` call;
+    3. times: K7 on ``iou_full``'s fields, ``iou_full`` end to end, the
+       plain path's three pairs, K7 and the plain path at N=64, beside
+       K7's bound (``bounds.voxel_iou_bounds``) and the share of the full
+       sweep its z cull evaluates."""
+    import torch
+
+    from sqtpu_torch.data.synthetic import sample_params
+    from sqtpu_torch.evaluate import load_eval_state, predict
+    from sqtpu_torch.ops import geometry, metrics
+    from sqtpu_torch.ops.kernels import bounds as B
+    from sqtpu_torch.ops.kernels import (
+        launch_counts, render_hard_auto, reset_launches,
+    )
+    from sqtpu_torch.ops.kernels import voxel_iou as V
+    from sqtpu_torch.utils.config import EvalConfig
+
+    model = load_eval_state(EvalConfig(ckpt_dir=WEIGHTS, batch_size=BATCH,
+                                       device="cuda"), dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(K7_SEED)
+    batches = []
+    with torch.inference_mode():
+        for _ in range(K7_BATCHES):
+            truth = sample_params(BATCH, gen, device=dev)
+            imgs = render_hard_auto(truth, IMAGE, n_sweep=EVAL_SWEEP,
+                                    n_bisect=EVAL_BISECT, quantize=True)
+            batches.append((truth, predict(model, imgs[..., None])))
+    shares, checked = [], 0
+    for i, (truth, pred) in enumerate(batches):
+        fields, _ = metrics.full_fields(truth, pred)
+        counts = k7_check(f"iou_full's pairs, batch {i}, N=128", fields,
+                          metrics.FULL_PAIRS, 128)
+        ious = counts[..., 0].float() / counts[..., 1].float()
+        full = metrics.iou_full(truth, pred, 128)
+        if not torch.equal(full[:, [0, 1, 5]], ious):
+            raise RuntimeError(f"K7: iou_full's IoU columns of batch {i} "
+                               "are not its counts' quotients")
+        k7_check(f"validation's iou, batch {i}, N=64", (truth, pred),
+                 ((0, 1),), 64)
+        shares.append(V.tested_share(V.pack_fields(fields),
+                                     V.axes(fields, 128)))
+        checked += counts.numel() + 2 * BATCH
+    truth, pred = batches[0]
+    k7_check("float64, N=32", (truth.double(), pred.double()), ((0, 1),),
+             32)
+    for n in (32, 64):   # a bf16 net's validation: bf16 predictions
+        k7_check(f"bfloat16 predictions, N={n}", (truth, pred.bfloat16()),
+                 ((0, 1),), n)
+    for n in K7_ADVERSARIAL_SIZES:
+        rows = k7_adversarial(truth, geometry.make_axis(n, "iou",
+                                                        device=dev))
+        k7_check(f"adversarial rows, N={n}", (truth[:32], rows),
+                 ((0, 1), (1, 1)), n)
+    reset_launches()
+    got = []
+    for call in (lambda: metrics.iou_full(truth, pred, 128),
+                 lambda: metrics.iou(truth, pred, 64),
+                 lambda: metrics.iou_counts(truth, pred, 64)):
+        call()
+        got.append(launch_counts()["K7"])
+    if got != [1, 2, 3]:
+        raise RuntimeError(f"K7: launches after iou_full, iou, iou_counts "
+                           f"{got}, expected [1, 2, 3]")
+    fields, _ = metrics.full_fields(truth, pred)
+    par = V.pack_fields(fields)
+    ms = cuda_ms(lambda: V.voxel_iou_cuda(fields, metrics.FULL_PAIRS, 128))
+    full_ms = cuda_ms(lambda: metrics.iou_full(truth, pred, 128))
+    plain_ms = cuda_ms(lambda: k7_plain(fields, metrics.FULL_PAIRS, 128), 3)
+    n64_ms = cuda_ms(lambda: metrics.iou_counts(truth, pred, 64))
+    plain64_ms = cuda_ms(lambda: metrics.plain_iou_counts(truth, pred, 64),
+                         3)
+    bound = B.voxel_iou_bounds(par, V.axes(fields, 128),
+                               len(metrics.FULL_PAIRS))
+    progress(f"K7: {checked} counts of {K7_BATCHES} batches of {BATCH} "
+             "equal the plain path's (iou_full's 3 pairs at N=128, iou at "
+             "N=64), float64 at N=32, bfloat16 predictions at N=32 and 64 "
+             "and the adversarial rows at N="
+             f"{K7_ADVERSARIAL_SIZES}; launches {got}; K7 {ms:.4f} ms on "
+             f"iou_full's 5 fields (iou_full {full_ms:.3f} ms, plain "
+             f"{plain_ms:.2f} ms), N=64 {n64_ms:.4f} ms (plain "
+             f"{plain64_ms:.2f}); bound {bound['bound_ms']:.4f} ms "
+             f"({bound['evaluations']} field evaluations, "
+             f"{bound['tested_share']:.4f} of the full sweep; full sweep "
+             f"{bound['bound_ms_full_sweep']:.4f} ms); tested share by batch "
+             f"{[round(x, 4) for x in shares]}")
+    return {"ms": ms, "iou_full_ms": full_ms, "plain_ms": plain_ms,
+            "n64_ms": n64_ms, "plain_n64_ms": plain64_ms,
+            "batch": BATCH, "n": 128, "fields": len(fields),
+            "pairs": len(metrics.FULL_PAIRS), "counts_checked": checked,
+            "tested_share": shares, "launches": got, **bound}
+
+
 def registers_of(ptxas: str, entry: str):
     """Registers a kernel got in ``ptxas -v`` output (None if absent)."""
     import re
@@ -4401,6 +4595,10 @@ def main() -> int:
         recorded=(RECORDED_FULL_IOU, RECORDED_ROT_IOU),
         recorded_pred=recorded_pred)
     progress("phase 4 closed loop reproduces the recorded IoUs")
+    loop_k7 = counts_k7()
+    if loop_k7 != -(-truths.shape[0] // BATCH):
+        raise RuntimeError(f"closed loop: {loop_k7} K7 launches, expected "
+                           "one an iou_full call")
     eval_launches = phase_eval_random(dev)
     progress("phase 5 eval_random done")
     phase_serve(loop["first_imgs"], loop["preds"], dev)
@@ -4514,6 +4712,10 @@ def main() -> int:
              f"({bench_ranks['backend']}): bench.py's keys, n_chips, the "
              "first losses of one rank, the models equal, each rank's "
              "launches")
+    k7_row = phase_voxel_iou(dev)
+    progress("phase 39 K7's counts equal the plain path's (iou_full at "
+             "N=128, iou at N=64, float64, the adversarial rows); one "
+             "launch a call")
     f1_runs = {"ssl1_bf16": bf16["trainer"],
                "ssl1_bf16_profiled": bf16["trainer_profiled"],
                "keras_rot_fixed": krf["trainer"],
@@ -4631,6 +4833,13 @@ def main() -> int:
          "replaces": "sqtpu/ops/kernels/implicit.py:543",
          "launches": k6["K6"] + k6["K6_bwd"], "launches_fwd": k6["K6"],
          "launches_bwd": k6["K6_bwd"], **slab_row},
+        {"name": "voxel_iou", "route": "cuda",
+         "source": "sqtpu_torch/csrc/voxel_iou.cu",
+         "replaces": None, "plain_jax": "sqtpu/ops/metrics.py:25-52",
+         "registers": ptxas_registers("voxel_iou", "voxel_iou_kernelIf"),
+         "registers_float64": ptxas_registers("voxel_iou",
+                                              "voxel_iou_kernelId"),
+         "launches_closed_loop": loop_k7, **k7_row},
     ]
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"train_step_split_ms": split,

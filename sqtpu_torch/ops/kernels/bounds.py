@@ -67,6 +67,19 @@ OPS_K4 = 226
 OPS_K4_CULLED = 152
 OPS_K5_CULLED = OPS_K4_CULLED - 5 - 64
 
+# fp32 operations per field evaluation of the voxel IoU kernel K7, each
+# logf/expf counted as one, read off sqtpu_torch/csrc/voxel_iou.cu
+# (``occupied``): per axis r2·Z, + P, − tr, / a and the square (15); five
+# pows, each a log, a product by the exponent and an exp (15); (A + B),
+# + tiny, (E + C), + tiny (4); the test F <= 1 (1). The column's P (9) is
+# taken once a chunk of 32 voxels and the counting is a few integer
+# operations a 32-voxel word: neither is counted. The evaluations the
+# kernel makes are the field intervals its z cull leaves (counted by the
+# emulation); every voxel outside them is unoccupied, so these are the work
+# these inputs need: K7's bound. Every field at every voxel (the plain
+# path's grids) gives `bound_ms_full_sweep`.
+OPS_K7 = 35
+
 
 def ops_ms(count: int, ops_per: int) -> float:
     """Milliseconds for ``count`` items of ``ops_per`` fp32 operations at
@@ -112,3 +125,23 @@ def explicit_bounds(par_t, par_p, n: int, sharp: float) -> dict:
                       "bound_ms_window": max(ops_ms(points, window_ops),
                                              moved)}
     return rows
+
+
+def voxel_iou_bounds(par, ax, n_pairs: int) -> dict:
+    """K7's bound for (B, F, 24) rows packed by
+    :func:`sqtpu_torch.ops.kernels.voxel_iou.pack_fields` on their
+    lattice axes ``ax`` (F, N): the field evaluations after the z cull at OPS_K7, and the
+    bytes (the rows in, the (B, n_pairs, 2) int64 counts out); beside it
+    the full sweep's (every field at every voxel) and the share of it the
+    kernel evaluates."""
+    from sqtpu_torch.ops.kernels import voxel_iou as V
+
+    b, f = par.shape[:2]
+    evals = V.evaluations(par, ax)
+    full = b * f * ax.shape[-1] ** 3
+    moved = bytes_ms(par.numel() * par.element_size() + b * n_pairs * 16)
+    bound_ms, bound_by = bound(ops_ms(evals, OPS_K7), moved)
+    return {"bound_ms": bound_ms, "bound_by": bound_by,
+            "ops_per_evaluation": OPS_K7, "evaluations": evals,
+            "full_sweep_evaluations": full, "tested_share": evals / full,
+            "bound_ms_full_sweep": max(ops_ms(full, OPS_K7), moved)}

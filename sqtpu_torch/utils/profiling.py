@@ -23,7 +23,8 @@ marks these, each where its own code runs:
 * ``data.make_batch`` and ``data.sample``
   (:mod:`sqtpu_torch.data.synthetic`), ``ops.render_hard`` (K3's wrapper);
 * ``eval.predict`` (:func:`sqtpu_torch.evaluate.predict`),
-  ``metrics.iou_full`` and its 128³ occupancy grids ``metrics.voxels``
+  ``metrics.iou_full`` and ``metrics.voxels``, its occupancy counts: the
+  plain grids on the CPU, the one K7 launch on the card
   (:mod:`sqtpu_torch.ops.metrics`).
 
 Collection is off by default, and a span then costs one check and records

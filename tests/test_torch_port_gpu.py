@@ -47,7 +47,10 @@ pixels are one gray level apart at (64, 16) and (48, 12), none more.
 The bench's new settings: K1/K2 at its sequence-parallel step (N=128,
 B=64) and K4/K5 at its ``explicit96`` and ``explicit128`` steps (N=96
 and 128, sharpness 5). The
-``gd`` refinement runs K1/K2 over the full sweep.
+``gd`` refinement runs K1/K2 over the full sweep. K7 (the voxel IoU's
+counts) equals the plain path's counts for every sample and pair, on
+``iou_full``'s five fields at N = 128, 64 and 32, on rows that stress its
+z cull and in float64, and launches once an IoU call on the card.
 """
 
 import numpy as np
@@ -996,3 +999,67 @@ def test_explicit_kernels_at_the_bench_sharp5_settings_on_card(cuda_device,
     par_t, par_p = KE.pack_params(t, p, n, z_window, KE.default_margin(5.0))
     k4, _ = KE.cuda_fused(par_t, par_p, n, 5.0)
     assert torch.equal(KE.cuda_fwd(par_t, par_p, n, 5.0), k4)
+
+
+# ---- K7: the voxel IoU's counts -------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,b", [(128, 125), (64, 125), (32, 16)])
+def test_voxel_iou_counts_equal_plain_on_card(cuda_device, n, b):
+    """K7's intersection and union counts on iou_full's five fields and
+    three pairs, and on the rows that stress its z cull, equal the plain
+    path's for every sample and pair; float64, and bfloat16 predictions
+    against float32 truths, too."""
+    import chip_smoke
+    from sqtpu_torch.ops import geometry, metrics
+    from sqtpu_torch.ops.kernels import voxel_iou_cuda
+
+    rng = np.random.default_rng(90 + n)
+    truth = torch.tensor(_params(rng, b), device=cuda_device)
+    noise = torch.tensor(rng.normal(size=(b, 12)).astype(np.float32),
+                         device=cuda_device)
+    pred = truth + 0.03 * noise
+    fields, _ = metrics.full_fields(truth, pred)
+    got = voxel_iou_cuda(fields, metrics.FULL_PAIRS, n)
+    assert torch.equal(got, chip_smoke.k7_plain(fields, metrics.FULL_PAIRS,
+                                                n))
+    assert int(got[..., 1].min()) > 0
+    rows = chip_smoke.k7_adversarial(
+        truth.repeat(2, 1)[:32], geometry.make_axis(n, "iou",
+                                                    device=cuda_device))
+    adv = (truth.repeat(2, 1)[:32], rows)
+    assert torch.equal(voxel_iou_cuda(adv, ((0, 1), (1, 1)), n),
+                       chip_smoke.k7_plain(adv, ((0, 1), (1, 1)), n))
+    dbl = tuple(f.double() for f in fields[:3])
+    assert torch.equal(voxel_iou_cuda(dbl, ((0, 1), (0, 2)), n),
+                       chip_smoke.k7_plain(dbl, ((0, 1), (0, 2)), n))
+    b16 = (truth, pred.bfloat16(), truth.bfloat16())
+    assert torch.equal(voxel_iou_cuda(b16, ((0, 1), (0, 2)), n),
+                       chip_smoke.k7_plain(b16, ((0, 1), (0, 2)), n))
+
+
+@pytest.mark.gpu
+def test_voxel_iou_dispatch_on_card(cuda_device):
+    """CUDA tensors take K7, one launch a call; what it does not take
+    raises, never the plain path."""
+    from sqtpu_torch.ops import metrics
+    from sqtpu_torch.ops.kernels import launch_counts, reset_launches
+    from sqtpu_torch.ops.kernels import voxel_iou as V
+
+    truth = torch.tensor(_params(np.random.default_rng(93), 8),
+                         device=cuda_device)
+    pred = truth.flip(0)
+    reset_launches()
+    metrics.iou_full(truth, pred, 32)
+    metrics.iou(truth, pred, 32)
+    metrics.iou_counts(truth, pred, 32)
+    assert launch_counts()["K7"] == 3
+    metrics.iou(truth, pred.bfloat16(), 32)
+    assert launch_counts()["K7"] == 4
+    with pytest.raises(TypeError):
+        metrics.iou(truth.half(), pred.half(), 32)
+    with pytest.raises(TypeError):
+        metrics.iou(truth, pred.double(), 32)
+    with pytest.raises(ValueError):
+        metrics.iou(truth, pred, V.MAX_N + 1)
+    assert launch_counts()["K7"] == 4
