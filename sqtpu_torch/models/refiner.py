@@ -16,6 +16,11 @@ its BatchNorm statistics move once per call, each move seeing the one
 before, as in flax; ``remat`` recomputes both encoders in the backward
 with their statistics left alone. ``dtype`` is flax's, as in
 :mod:`sqtpu_torch.models.resnet` (the delta head computes in it too).
+
+The forward marks its phases as spans (:mod:`sqtpu_torch.utils.profiling`):
+``refine.base`` around the base, and for each pass ``refine.render``
+around the in-loop render and ``refine.pass`` around the block and
+:func:`apply_delta`; their calls count the passes and the renders.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from sqtpu_torch.models.resnet import (
 from sqtpu_torch.ops import geometry, kernels
 from sqtpu_torch.ops import quaternion as quat
 from sqtpu_torch.utils.checkpoint import load_weights_npz
+from sqtpu_torch.utils.profiling import span
 
 
 def apply_delta(p: torch.Tensor, delta: torch.Tensor,
@@ -93,15 +99,19 @@ class IterativeSQ(nn.Module):
         ``remat`` recomputes both encoders in the backward."""
         if x.ndim == 3:
             x = x[..., None]
-        p = torch.cat(self.base(x, remat), dim=-1)
+        with span("refine.base"):
+            p = torch.cat(self.base(x, remat), dim=-1)
         s = x.shape[1]
         for _ in range(self.n_refine):
-            rendered = kernels.render_hard_auto(
-                p.detach().float(), s, n_sweep=self.n_sweep, n_bisect=24,
-                quantize=False)
-            img2 = torch.cat([x, rendered[..., None].to(x.dtype)], dim=-1)
-            p = apply_delta(p, self.refine(img2, p, remat),
-                            self.delta_scale)
+            with span("refine.render"):
+                rendered = kernels.render_hard_auto(
+                    p.detach().float(), s, n_sweep=self.n_sweep,
+                    n_bisect=24, quantize=False)
+            with span("refine.pass"):
+                img2 = torch.cat([x, rendered[..., None].to(x.dtype)],
+                                 dim=-1)
+                p = apply_delta(p, self.refine(img2, p, remat),
+                                self.delta_scale)
         return p[..., 0:3], p[..., 3:5], p[..., 5:8], p[..., 8:12]
 
 

@@ -25,7 +25,10 @@ marks these, each where its own code runs:
 * ``eval.predict`` (:func:`sqtpu_torch.evaluate.predict`),
   ``metrics.iou_full`` and ``metrics.voxels``, its occupancy counts: the
   plain grids on the CPU, the one K7 launch on the card
-  (:mod:`sqtpu_torch.ops.metrics`).
+  (:mod:`sqtpu_torch.ops.metrics`);
+* ``refine.base``, ``refine.render`` and ``refine.pass``, the corrector's
+  base, each in-loop render (K3 on the card) and each pass's block and
+  update (:class:`sqtpu_torch.models.refiner.IterativeSQ`).
 
 Collection is off by default, and a span then costs one check and records
 nothing. It is on while a ``torch.profiler`` session records (not in its
