@@ -127,7 +127,12 @@ user calls:
   c4 weights' predictions, validation's ``iou`` at N=64, float64 at
   N=32 and rows that stress its z cull; one launch an ``iou_full``,
   ``iou`` or ``iou_counts`` call; its time beside its bound and the
-  plain path's.
+  plain path's;
+* stream waits (phase 40): under ``torch.cuda.set_sync_debug_mode
+  ("warn")``, the synchronizations of one batch of each eval cell of the
+  benchmark and of one ``make_batch`` and step of each train cell, built
+  by the benchmark's own drivers, each counted at its call site: an eval
+  batch waits at its five reads alone, ``make_batch`` never.
 
 One flushed progress line per phase, with the elapsed seconds; no failure
 is caught. The bench prints its JSON lines among them (phases 37 and
@@ -138,7 +143,7 @@ and power limit), one JSON object with each kernel's numbers, and
 
 It exits non-zero, printing no result, when torch sees no CUDA device or
 when the port is not beside it. A hang ends in a stack dump and a
-non-zero exit after HANG_S (1100 s). It imports nothing of JAX or of
+non-zero exit after HANG_S (1300 s). It imports nothing of JAX or of
 ``sqtpu``.
 """
 
@@ -326,10 +331,10 @@ C4C_SPLIT = ("render (K3)", "forward", "loss (K4 + anchor)",
              "backward (incl. recompute)", "gradient all-reduce", "optimizer")
 
 T0 = time.perf_counter()
-# A hang ends in a stack dump and a non-zero exit, inside the script's
-# limit of 1200 s (a remote run that copies the repo to the card first
-# needs 1500 s: the copy and the machine's start-up come on top).
-HANG_S = 1100
+# A hang ends in a stack dump and a non-zero exit, inside the 1500 s a
+# remote run is given (the copy to the card and the machine's start-up
+# come on top of the smoke's ≈1050 s).
+HANG_S = 1300
 
 
 def progress(msg: str) -> None:
@@ -4512,6 +4517,125 @@ def phase_voxel_iou(dev) -> dict:
             "tested_share": shares, "launches": got, **bound}
 
 
+# Phase 40: the cells whose stream waits are counted, their seed, and
+# what an eval batch may wait for: its five reads of the results.
+WAIT_CELLS = ("c4c-fp32.eval-closed-loop", "c4r2-fp32.eval-closed-loop",
+              "ssl-bf16.train-online", "c4c-fp32.train-online")
+WAIT_SEED = 2_147_483_701
+EVAL_READS = 5
+
+
+def stream_waits(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result and its stream waits, counted by call site (the innermost
+    frame of ``sqtpu_torch``, else of the caller's harness)."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    import perfbench
+    import sqtpu_torch
+
+    roots = [os.path.dirname(os.path.abspath(m.__file__)) + os.sep
+             for m in (sqtpu_torch, perfbench)]
+    sites = collections.Counter()
+
+    def site() -> str:
+        stack = traceback.extract_stack()[:-2]
+        for root in roots:
+            for frame in reversed(stack):
+                if frame.filename.startswith(root):
+                    rel = os.path.relpath(frame.filename,
+                                          os.path.dirname(root[:-1]))
+                    return f"{rel}:{frame.lineno} ({frame.name})"
+        return "outside the program"
+
+    def seen(message, category, *args, **kwargs):
+        if "called a synchronizing CUDA operation" in str(message):
+            sites[site()] += 1
+
+    before = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+    return out, dict(sites)
+
+
+def cell_stream_waits(dev) -> dict:
+    """The stream waits of one steady batch or step of each cell of
+    WAIT_CELLS, built by the benchmark's own drivers (``perfbench``) at
+    the cell's sizes: an eval cell's batch (``eval._batch``: sample, K3,
+    predict, ``iou_full``, the errors and the five reads); a train
+    cell's ``make_batch`` and step. A first batch or step, not counted,
+    warms every shape."""
+    import torch
+
+    from perfbench.harness import Cell
+
+    out = {}
+    for name in WAIT_CELLS:
+        cell = Cell(name, ROOT)
+        driver = cell.driver()
+        config = dict(cell.config)
+        config.update(cell.traffic.get("config", {}))
+        if cell.traffic["driver"] == "train":
+            weights = driver.make_weights(
+                config["weights"], driver.weights_seed(WAIT_SEED), dev,
+                cell.root, config.get("weights_sha256", ""))
+            run = driver.PortTrainee(config, weights, WAIT_SEED, dev)
+            run.step(*run.draw())
+            batch, data = stream_waits(run.draw)
+            _, step = stream_waits(lambda: run.step(*batch))
+            out[name] = {"make_batch": data, "step": step}
+        else:
+            weights = driver.make_weights(
+                config["weights"], WAIT_SEED, dev, cell.root,
+                config.get("weights_sha256", ""))
+            run = driver.PortLoop(config, weights, WAIT_SEED, dev)
+            with torch.inference_mode():
+                driver._batch(run)
+                _, sites = stream_waits(lambda: driver._batch(run))
+            out[name] = {"batch": sites}
+        del run, weights
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_stream_waits(dev) -> dict:
+    """Phase 40: the stream waits of one batch of each eval cell and of
+    one step of each train cell (:func:`cell_stream_waits`), each printed
+    with its call site. An eval cell's batch waits for its five reads
+    alone, and ``make_batch`` for nothing; what a train step waits for is
+    printed, not held."""
+    waits = cell_stream_waits(dev)
+    for name, parts in waits.items():
+        for part, sites in parts.items():
+            progress(f"stream waits, {name} {part}: "
+                     f"{sum(sites.values())}"
+                     + "".join(f"\n    {n} at {s}" for s, n in
+                               sorted(sites.items())))
+    for name in WAIT_CELLS[:2]:
+        sites = waits[name]["batch"]
+        reads = sum(n for s, n in sites.items()
+                    if s.startswith("perfbench/drivers/eval.py:"))
+        if sum(sites.values()) != EVAL_READS or reads != EVAL_READS:
+            raise RuntimeError(f"{name}: a batch waits for the stream "
+                               f"{sites}, expected its {EVAL_READS} reads "
+                               "alone")
+    for name in WAIT_CELLS[2:]:
+        if waits[name]["make_batch"]:
+            raise RuntimeError(f"{name}: make_batch waits for the stream "
+                               f"{waits[name]['make_batch']}")
+    return waits
+
+
 def registers_of(ptxas: str, entry: str):
     """Registers a kernel got in ``ptxas -v`` output (None if absent)."""
     import re
@@ -4716,6 +4840,9 @@ def main() -> int:
     progress("phase 39 K7's counts equal the plain path's (iou_full at "
              "N=128, iou at N=64, float64, the adversarial rows); one "
              "launch a call")
+    waits = phase_stream_waits(dev)
+    progress("phase 40 an eval or corrector batch waits for the stream at "
+             "its five reads alone, make_batch never")
     f1_runs = {"ssl1_bf16": bf16["trainer"],
                "ssl1_bf16_profiled": bf16["trainer_profiled"],
                "keras_rot_fixed": krf["trainer"],
@@ -4883,7 +5010,8 @@ def main() -> int:
                       "launcher_ssl1_grid": launcher,
                       "launcher_ssl1_grid_nccl": launcher_nccl,
                       "bench_ranks": {k: v for k, v in bench_ranks.items()
-                                      if k != "line"}}), flush=True)
+                                      if k != "line"},
+                      "stream_waits": waits}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -117,14 +117,36 @@ SQ_GAUGE_QUATS_SWAP = (
     (_SQ2, -_SQ2, 0.0, 0.0),   # 180° about (1,-1,0)/√2
 )
 
+# The whole D4 gauge group, the flips first.
+SQ_GAUGE_QUATS = SQ_FLIP_QUATS + SQ_GAUGE_QUATS_SWAP
 
-def _right_multiply(q: torch.Tensor, g) -> torch.Tensor:
-    return quat.multiply(q, q.new_tensor(g).expand_as(q))
+_gauge_tables: dict = {}
+
+
+def gauge_table(q: torch.Tensor) -> torch.Tensor:
+    """(8, 4) :data:`SQ_GAUGE_QUATS` in ``q``'s dtype on its device,
+    converted as ``q.new_tensor`` converts them, made once for each
+    device and dtype: a copy from pageable host memory at every call
+    would hold the host until the card's queue drains. Made outside
+    inference mode, so that a training step may save it for backward
+    after an evaluation made it."""
+    key = (q.device, q.dtype)
+    if key not in _gauge_tables:
+        with torch.inference_mode(False):
+            _gauge_tables[key] = torch.tensor(SQ_GAUGE_QUATS, dtype=q.dtype,
+                                              device=q.device)
+    return _gauge_tables[key]
+
+
+def _right_multiply(q: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """q·g for a row ``g`` of :func:`gauge_table`."""
+    return quat.multiply(q, g.expand_as(q))
 
 
 def _flip_orbit(q: torch.Tensor) -> torch.Tensor:
     """(..., 4) -> (4, ..., 4): the D2 orbit q·f."""
-    return torch.stack([_right_multiply(q, f) for f in SQ_FLIP_QUATS])
+    flips = gauge_table(q)[:len(SQ_FLIP_QUATS)]
+    return torch.stack([_right_multiply(q, f) for f in flips])
 
 
 def _swap_sizes(a: torch.Tensor) -> torch.Tensor:
@@ -141,8 +163,9 @@ def param_gauge_orbit(p: torch.Tensor) -> torch.Tensor:
     def variant(g, a_v):
         return torch.cat([a_v, e, t, _right_multiply(q, g)], dim=-1)
 
-    return torch.stack([variant(g, a) for g in SQ_FLIP_QUATS]
-                       + [variant(g, a_sw) for g in SQ_GAUGE_QUATS_SWAP])
+    n_flips = len(SQ_FLIP_QUATS)
+    return torch.stack([variant(g, a if k < n_flips else a_sw)
+                        for k, g in enumerate(gauge_table(q))])
 
 
 def quaternion_loss(q_pred: torch.Tensor, q_true: torch.Tensor,
@@ -211,7 +234,7 @@ def canonicalize_gauge(p: torch.Tensor) -> torch.Tensor:
     swap the two sizes and right-multiply q by Rz(+90°)."""
     a, e, t, q = geometry.split_params(p)
     swap = (a[..., 0] < a[..., 1])[..., None]
-    q_sw = _right_multiply(q, SQ_GAUGE_QUATS_SWAP[0])
+    q_sw = _right_multiply(q, gauge_table(q)[len(SQ_FLIP_QUATS)])  # Rz(+90)
     return torch.cat([torch.where(swap, _swap_sizes(a), a), e, t,
                       torch.where(swap, q_sw, q)], dim=-1)
 

@@ -26,8 +26,11 @@ def multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 
 def conjugate(q: torch.Tensor) -> torch.Tensor:
-    """(-x, -y, -z, w)."""
-    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    """(-x, -y, -z, w): the vector part negated, which is exact, so every
+    value keeps its bits (a NaN stays a NaN). No constant is copied to
+    the device: from pageable host memory that copy would wait for the
+    card's queue to drain at every call."""
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def to_matrix(q: torch.Tensor) -> torch.Tensor:

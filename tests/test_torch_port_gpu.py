@@ -50,8 +50,13 @@ and 128, sharpness 5). The
 ``gd`` refinement runs K1/K2 over the full sweep. K7 (the voxel IoU's
 counts) equals the plain path's counts for every sample and pair, on
 ``iou_full``'s five fields at N = 128, 64 and 32, on rows that stress its
-z cull and in float64, and launches once an IoU call on the card.
+z cull and in float64, and launches once an IoU call on the card. Under
+``torch.cuda.set_sync_debug_mode("error")`` a closed-loop batch from the
+sample to the caller's errors, a corrector forward and ``make_batch``
+never wait for the stream, and give what they give with the mode off.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -1063,3 +1068,97 @@ def test_voxel_iou_dispatch_on_card(cuda_device):
     with pytest.raises(ValueError):
         metrics.iou(truth, pred, V.MAX_N + 1)
     assert launch_counts()["K7"] == 4
+
+
+# The sync-free paths: a batch, small enough to be quick, in the order of
+# the closed loop's batch (perfbench/drivers/eval.py::_batch), the eval
+# traffic's sweep and the corrector's in-loop render.
+SYNC_B, SYNC_IMAGE, SYNC_IOU_N, SYNC_SEED = 16, 64, 32, 2_147_483_659
+
+
+@contextlib.contextmanager
+def sync_debug(mode):
+    """``torch.cuda.set_sync_debug_mode(mode)`` inside the block."""
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def _closed_loop_batch(net, dev, mode):
+    """Sample, K3, the input filter, predict, ``iou_full``, the caller's
+    ``gauge_align`` and MAE under the debug ``mode``; the five reads
+    with the mode off."""
+    from sqtpu_torch.data.synthetic import sample_params
+    from sqtpu_torch.evaluate import predict
+    from sqtpu_torch.fit import apply_prefilter
+    from sqtpu_torch.ops import metrics
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SYNC_SEED)
+    with torch.inference_mode(), sync_debug(mode):
+        p_true = sample_params(SYNC_B, gen, device=dev)
+        imgs = apply_prefilter(render_hard_auto(
+            p_true, SYNC_IMAGE, n_sweep=64, n_bisect=16, quantize=True),
+            "none")[..., None]
+        p_pred = predict(net, imgs)
+        triple = metrics.iou_full(p_true, p_pred, SYNC_IOU_N)
+        mae = torch.abs(p_pred - p_true)
+        aligned, _ = metrics.gauge_align(p_true, p_pred)
+        qdot = torch.sum(aligned[..., 8:12] * p_pred[..., 8:12], dim=-1,
+                         keepdim=True)
+        qa = torch.where(qdot < 0, -aligned[..., 8:12], aligned[..., 8:12])
+        mae_gauge = torch.abs(p_pred - torch.cat([aligned[..., :8], qa],
+                                                 -1))
+    return [x.cpu() for x in (p_true, p_pred, triple, mae, mae_gauge)]
+
+
+def _refine_forward(net, dev, mode):
+    """One eval forward of the corrector on K3 images: the base, then
+    each pass's in-loop render and block, under the debug ``mode``."""
+    from sqtpu_torch.data.synthetic import sample_params
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SYNC_SEED)
+    with torch.inference_mode():
+        imgs = render_hard_auto(sample_params(SYNC_B, gen, device=dev),
+                                SYNC_IMAGE, n_sweep=64, n_bisect=16)
+        with sync_debug(mode):
+            out = net(imgs[..., None])
+    return [x.cpu() for x in out]
+
+
+def _make_batch(net, dev, mode):
+    from sqtpu_torch.data.synthetic import make_batch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SYNC_SEED)
+    with sync_debug(mode):
+        imgs, labels = make_batch(gen, SYNC_B, SYNC_IMAGE)
+    return [imgs.cpu(), labels.cpu()]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path,model", [
+    (_closed_loop_batch, "resnet_sq"), (_refine_forward, "refine_sq"),
+    (_make_batch, None)], ids=["closed_loop_batch", "refine_sq_forward",
+                               "make_batch"])
+def test_no_stream_sync_on_card(cuda_device, path, model):
+    """With ``set_sync_debug_mode("error")`` nothing on the path waits for
+    the stream (a constant copied from pageable host memory would), and
+    it gives what it gives with the mode off. The first call, with the
+    mode off, builds the kernels and the gauge group's table."""
+    from sqtpu_torch.models import build_model
+
+    net = None
+    if model is not None:
+        torch.manual_seed(0)
+        net = numpy_weights(build_model(model, SYNC_IMAGE), 31)
+        net = net.to(cuda_device).eval()
+    want = path(net, cuda_device, "default")
+    got = path(net, cuda_device, "error")
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
