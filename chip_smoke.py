@@ -573,14 +573,14 @@ def phase_eval_random(dev) -> int:
     import numpy as np
 
     from sqtpu_torch.evaluate import eval_random
-    from sqtpu_torch.ops.kernels import hardrender
+    from sqtpu_torch.ops.kernels import launch_counts, reset_launches
     from sqtpu_torch.utils.config import EvalConfig
 
     out_dir = tempfile.mkdtemp(prefix="sqtpu_torch_eval_")
-    hardrender.reset_launches()
+    reset_launches()
     res = eval_random(EvalConfig(ckpt_dir=WEIGHTS, n=250, batch_size=BATCH,
                                  out_dir=out_dir, device=dev.type))
-    launches = hardrender.launches
+    launches = launch_counts()["K3"]
     accs = os.path.join(out_dir, "accs.npz")
     if not os.path.exists(accs):
         raise RuntimeError("eval_random wrote no accs.npz")
@@ -998,12 +998,11 @@ def step_card_vs_cpu(what: str, truths, dev, cfg, weights, counts,
 def phase_train_step(truths, dev) -> None:
     """One ssl train step on the card (K1/K2) against the CPU's, from the
     ssl artifact's weights."""
-    from sqtpu_torch.ops.kernels import implicit as K
     from sqtpu_torch.utils.config import TrainConfig
 
     step_card_vs_cpu("train step (implicit)", truths, dev,
                      TrainConfig(batch_size=STEP_B), SSL_WEIGHTS,
-                     lambda: (K.fwd_launches, K.bwd_launches), (1, 1),
+                     lambda: launched("K1", "K2"), (1, 1),
                      STEP_LOSS_RTOL)
 
 
@@ -1015,7 +1014,7 @@ def phase_validation(truths, dev) -> None:
 
     from sqtpu_torch.evaluate import load_eval_state
     from sqtpu_torch.models import params_vector
-    from sqtpu_torch.ops.kernels import implicit as K
+    from sqtpu_torch.ops.kernels import launch_counts, reset_launches
     from sqtpu_torch.ops.kernels import implicit_loss_auto, render_hard_auto
     from sqtpu_torch.utils.config import EvalConfig
 
@@ -1029,10 +1028,11 @@ def phase_validation(truths, dev) -> None:
         pred = params_vector(model(imgs[..., None]))
         return float(implicit_loss_auto(imgs, pred, LOSS_N, TAU, SHARP))
 
-    K.reset_launches()
+    reset_launches()
     v16 = val_loss(truths[:PINNED_N])
-    if K.fwd_launches != 1:
-        raise RuntimeError(f"validation launched K1 {K.fwd_launches} times")
+    if launch_counts()["K1"] != 1:
+        raise RuntimeError(f"validation launched K1 {launch_counts()['K1']} "
+                           "times")
     rel = rel_err(v16, PINNED_VAL_LOSS)
     v512 = val_loss(truths[:LOSS_B])
     progress(f"validation: implicit loss of the ssl weights on the first "
@@ -1141,6 +1141,7 @@ def phase_explicit(dev, n: int = EXPLICIT_N, sharp: float = EXPLICIT_SHARP,
     import torch
 
     from sqtpu_torch.ops.kernels import explicit as KE
+    from sqtpu_torch.ops.kernels import reset_launches
 
     truths, pred = explicit_inputs(dev)
 
@@ -1158,12 +1159,13 @@ def phase_explicit(dev, n: int = EXPLICIT_N, sharp: float = EXPLICIT_SHARP,
     plain = plain_explicit(truths, pred, n, sharp, grad=True)
     worst = {"value": 0.0, "grad": 0.0, "k5_vs_k4": 0.0}
     for z_window in (True, False):
-        KE.reset_launches()
+        reset_launches()
         got = value_and_grad(KE.explicit_loss_cuda, z_window)
         k5 = value_only(KE.explicit_loss_cuda, z_window)
-        if (KE.fused_launches, KE.fwd_launches) != (1, 1):
-            raise RuntimeError(f"K4/K5 launches {KE.fused_launches}, "
-                               f"{KE.fwd_launches}: expected one each")
+        launches = launched("K4", "K5")
+        if launches != (1, 1):
+            raise RuntimeError(f"K4/K5 launches {launches}: expected one "
+                               "each")
         again = value_and_grad(KE.explicit_loss_cuda, z_window)
         if not (all(torch.equal(a, b) for a, b in zip(got, again))
                 and torch.equal(k5, value_only(KE.explicit_loss_cuda,
@@ -1236,14 +1238,13 @@ def phase_explicit(dev, n: int = EXPLICIT_N, sharp: float = EXPLICIT_SHARP,
 def phase_explicit_step(truths, dev) -> None:
     """One explicit_sym train step with remat on the card (K4) against the
     CPU's, from the c4 artifact's weights."""
-    from sqtpu_torch.ops.kernels import explicit as KE
     from sqtpu_torch.utils.config import TrainConfig
 
     cfg = TrainConfig(batch_size=EX_STEP_B, remat=True, learning_rate=5e-6,
                       nan_policy="skip",
                       **{**C4C_LOSS, "render_size": EX_STEP_N})
     step_card_vs_cpu("train step (explicit_sym, remat)", truths, dev, cfg,
-                     WEIGHTS, lambda: (KE.fused_launches, KE.fwd_launches),
+                     WEIGHTS, lambda: launched("K4", "K5"),
                      (1, 0), EX_STEP_LOSS_RTOL)
 
 
@@ -1255,9 +1256,8 @@ def phase_explicit_validation(truths, dev) -> None:
     import torch
 
     from sqtpu_torch.evaluate import load_eval_state
-    from sqtpu_torch.ops.kernels import explicit as KE
     from sqtpu_torch.ops.kernels import explicit_loss_auto, render_hard_auto
-    from sqtpu_torch.ops.kernels import implicit as K
+    from sqtpu_torch.ops.kernels import reset_launches
     from sqtpu_torch.training.loop import make_eval_step
     from sqtpu_torch.training.state import create_train_state
     from sqtpu_torch.utils.config import EvalConfig, TrainConfig
@@ -1268,11 +1268,9 @@ def phase_explicit_validation(truths, dev) -> None:
     p = torch.as_tensor(truths[:PINNED_N], device=dev)
     imgs = render_hard_auto(p, IMAGE, n_sweep=TRAIN_SWEEP,
                             n_bisect=TRAIN_BISECT, quantize=True)[..., None]
-    K.reset_launches()
-    KE.reset_launches()
+    reset_launches()
     loss, acc, ang, pred = make_eval_step(state, cfg)(imgs, p)
-    launches = (KE.fused_launches, KE.fwd_launches, K.fwd_launches,
-                K.bwd_launches)
+    launches = launched("K4", "K5", "K1", "K2")
     if launches != (0, 1, 0, 0):
         raise RuntimeError(f"validation launched K4/K5/K1/K2 {launches}, "
                            "expected K5 once")
@@ -1426,6 +1424,15 @@ def counts() -> tuple:
 
     got = launch_counts()
     return tuple(got[k] for k in KERNEL_COUNTS)
+
+
+def launched(*kernels) -> tuple:
+    """Launches of these kernels (ids of ``launch_counts``) since their
+    last reset."""
+    from sqtpu_torch.ops.kernels import launch_counts
+
+    got = launch_counts()
+    return tuple(got[k] for k in kernels)
 
 
 def counts_k7() -> int:
@@ -2066,7 +2073,7 @@ def phase_noise(truths, dev) -> dict:
     from sqtpu_torch.evaluate import eval_random, load_eval_state, predict
     from sqtpu_torch.fit import apply_prefilter
     from sqtpu_torch.ops import image, metrics
-    from sqtpu_torch.ops.kernels import hardrender
+    from sqtpu_torch.ops.kernels import launch_counts
     from sqtpu_torch.utils.config import EvalConfig
 
     model = load_eval_state(EvalConfig(ckpt_dir=ROBUST_WEIGHTS), dev)
@@ -2130,7 +2137,7 @@ def phase_noise(truths, dev) -> dict:
         device=dev.type, noise_gaussian=NOISE["gaussian"],
         noise_dropout=NOISE["dropout"], noise_salt=NOISE["salt"],
         input_filter="median", save_pairs=4))
-    launches = hardrender.launches
+    launches = launch_counts()["K3"]
     bmps = sorted(f for f in os.listdir(out_dir) if f.endswith(".bmp"))
     progress(f"eval_random n=250 with the noise protocol and the median: "
              f"full IoU {res['full_iou_mean']:.4f}, rot-IoU "
@@ -2165,7 +2172,7 @@ def phase_bulk(dev) -> tuple[dict, dict]:
     from sqtpu_torch.data.synthetic import sample_params
     from sqtpu_torch.evaluate import eval_single, load_eval_state, predict
     from sqtpu_torch.ops import image, metrics
-    from sqtpu_torch.ops.kernels import hardrender
+    from sqtpu_torch.ops.kernels import hardrender, launch_counts
     from sqtpu_torch.utils.config import EvalConfig, PredictConfig
 
     out = {}
@@ -2175,8 +2182,8 @@ def phase_bulk(dev) -> tuple[dict, dict]:
     generate.main(["--n", str(GEN_N), "--batch-size", str(GEN_BATCH),
                    "--out", data_dir, "--device", dev.type])
     out["generate_imgs_per_s"] = GEN_N / (time.perf_counter() - t)
-    if hardrender.launches != GEN_N // GEN_BATCH:
-        raise RuntimeError(f"generate launched K3 {hardrender.launches} "
+    if launch_counts()["K3"] != GEN_N // GEN_BATCH:
+        raise RuntimeError(f"generate launched K3 {launch_counts()['K3']} "
                            f"times, expected {GEN_N // GEN_BATCH}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)  # generate's default seed: its first batch
@@ -2756,8 +2763,6 @@ def phase_c4r1_trainer(truths, dev, card: str) -> dict:
 
     from sqtpu_torch.evaluate import load_eval_state
     from sqtpu_torch.models import apply_delta, build_model, warm_start_base
-    from sqtpu_torch.ops.kernels import explicit as KE
-    from sqtpu_torch.ops.kernels import hardrender as H
     from sqtpu_torch.ops.kernels import render_hard_auto
     from sqtpu_torch.training.loop import _compute_loss, make_eval_step
     from sqtpu_torch.training.state import create_train_state
@@ -2771,7 +2776,7 @@ def phase_c4r1_trainer(truths, dev, card: str) -> dict:
     step_card_vs_cpu(
         "train step (refine_sq, c4r1 recipe, remat, frozen base)", truths,
         dev, cfg, C4R1_WEIGHTS,
-        lambda: (H.launches, KE.fused_launches, KE.fwd_launches), (2, 1, 0),
+        lambda: launched("K3", "K4", "K5"), (2, 1, 0),
         EX_STEP_LOSS_RTOL)
 
     # the identity at init: the warm-started corrector's validation loss
@@ -3199,7 +3204,6 @@ def krf_bf16_kernels(truths, dev, cfg) -> dict:
     import torch
 
     from sqtpu_torch.ops import losses
-    from sqtpu_torch.ops.kernels import explicit as KE
     from sqtpu_torch.ops.kernels import render_hard_auto
     from sqtpu_torch.training.loop import make_eval_step, make_train_step
     from sqtpu_torch.training.state import create_train_state
@@ -3212,9 +3216,9 @@ def krf_bf16_kernels(truths, dev, cfg) -> dict:
                             n_bisect=TRAIN_BISECT, quantize=True)[..., None]
     reset_counts()
     loss = float(make_train_step(state, cfg)(imgs, labels))
-    after_train = (KE.fused_launches, KE.fwd_launches)
+    after_train = launched("K4", "K5")
     val, _, _, pred = make_eval_step(state, cfg)(imgs, labels)
-    launches = (KE.fused_launches, KE.fwd_launches)
+    launches = launched("K4", "K5")
     with torch.no_grad():
         plain = float(losses.explicit_loss(
             labels, pred.float(), cfg.render_size, sharp=cfg.explicit_sharp))
@@ -3244,7 +3248,6 @@ def phase_krf(truths, dev, card: str) -> dict:
     import torch
 
     from sqtpu_torch.models import params_vector
-    from sqtpu_torch.ops.kernels import explicit as KE
     from sqtpu_torch.ops.kernels import render_hard_auto
     from sqtpu_torch.utils.config import TrainConfig
 
@@ -3263,7 +3266,7 @@ def phase_krf(truths, dev, card: str) -> dict:
                       loss="explicit", render_size=KRF_N, grad_clip=1.0)
     step_card_vs_cpu("train step (keras_rot_fixed, explicit, clip 1.0)",
                      truths, dev, cfg, seeded("keras_rot_fixed"),
-                     lambda: (KE.fused_launches, KE.fwd_launches), (1, 0),
+                     lambda: launched("K4", "K5"), (1, 0),
                      EX_STEP_LOSS_RTOL, float64=True)
     out["bf16_kernels"] = krf_bf16_kernels(truths, dev, cfg)
 
@@ -3317,7 +3320,7 @@ def phase_iso(dev, card: str) -> dict:
     from sqtpu_torch.data.bmp import read_bmp
     from sqtpu_torch.data.labels import parse_csv_torch
     from sqtpu_torch.data.synthetic import sample_params
-    from sqtpu_torch.ops.kernels import hardrender
+    from sqtpu_torch.ops.kernels import launch_counts
     from sqtpu_torch.ops.render import render_depth_hard_batch
 
     out = {}
@@ -3346,12 +3349,12 @@ def phase_iso(dev, card: str) -> dict:
         off = float((np.abs(disk.astype(int) - plain.astype(int)) > 1)
                     .mean())
         progress(f"generate --iso n={ISO_GEN_N}: K3 launches "
-                 f"{hardrender.launches}; the CSV's quaternions within "
+                 f"{launch_counts()['K3']}; the CSV's quaternions within "
                  f"{q_err:.1e} of (1,1,1,0)/√3; the BMPs against the plain "
                  f"render of the CSV's labels: {off:.2e} of pixels off by "
                  "more than a gray level")
         if not (q_err <= 1e-6 and off < PIXEL_TOL and disk.max() > 80
-                and hardrender.launches == 1):
+                and launch_counts()["K3"] == 1):
             raise RuntimeError("generate --iso")
 
         reset_counts()
@@ -3367,7 +3370,7 @@ def phase_iso(dev, card: str) -> dict:
             model="keras_iso", iso=True, ckpt_dir=ckpt_dir, n=ISO_EVAL_N,
             batch_size=ISO_EVAL_B, image_size=IMAGE, out_dir=eval_dir,
             device=dev.type))
-        launches = hardrender.launches
+        launches = launch_counts()["K3"]
         with np.load(os.path.join(eval_dir, "accs.npz")) as d:
             rot, ang = d["rot_iou"], d["angle_sym"]
             q_pad = bool(np.array_equal(d["pred_params"][:, 8:],
@@ -3399,11 +3402,10 @@ def phase_other_models(truths, dev, card: str) -> dict:
     step on the CPU, then the trainer."""
     import shutil
 
-    from sqtpu_torch.ops.kernels import implicit as K
     from sqtpu_torch.utils.config import TrainConfig
 
     out = {}
-    no_kernel = lambda: (K.fwd_launches, K.bwd_launches)  # noqa: E731
+    no_kernel = lambda: launched("K1", "K2")  # noqa: E731
     for what, cfg, want in (
             ("resnet_sq6d, supervised_sym",
              TrainConfig(batch_size=STEP_B, model="resnet_sq6d",
@@ -4650,8 +4652,8 @@ def registers_of(ptxas: str, entry: str):
 
 
 def ptxas_registers(name: str, entry: str):
-    """Registers ptxas gave a kernel of a source in this run's build (None
-    when the library was not built by this process)."""
+    """Registers ptxas gave a kernel of a source in its build, read from
+    the log kept beside the library (None without one)."""
     from sqtpu_torch.ops.kernels import _build
 
     log = _build.build_log.get(name)

@@ -15,7 +15,9 @@ windowed, at EXPLICIT_N and EXPLICIT_SHARP). Times are
 alone and its launch alone on packed rows are timed; every other kernel's
 launch alone, K2 and K6's backward on this checkout's Tacc. With
 ``--other DIR``, DIR's ``sqtpu_torch/csrc`` sources are built with this
-checkout's nvcc flags into a temporary directory, their launches run in
+checkout's nvcc flags (``_build.build``, into ``sqtpu_torch/build/`` under
+their own hash: sources equal to this checkout's give its library), their
+launches run in
 turns with this checkout's (other, this, this, other), and the outputs
 are compared: K3's images bit for bit; K1's, K2's and K6's sums, Tacc and
 gradients relative (their arithmetic may differ); K4's and K5's outputs
@@ -40,8 +42,6 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
-import tempfile
 
 import numpy as np
 import torch
@@ -54,26 +54,20 @@ from sqtpu_torch.ops.kernels import hardrender as H
 from sqtpu_torch.ops.kernels import implicit as K
 
 
-BIND = {"hardrender": H.bind, "implicit": K.bind, "explicit": KE.bind}
 EXPLICIT_ENTRIES = ("explicit_fused_kernel", "explicit_fwd_kernel")
 REGISTERS: dict = {}  # "<name>_<tag>" -> {explicit entry: registers}
 
 
-def build_lib(root: str, name: str, out_dir: str, tag: str,
-              *defines: str) -> ctypes.CDLL:
+def build_lib(root: str, name: str, tag: str, *defines: str) -> ctypes.CDLL:
     """``root``'s ``sqtpu_torch/csrc/<name>.cu`` built with this
-    checkout's nvcc flags (and ``defines``) into ``out_dir``, loaded and
-    typed by this package's ``bind``."""
-    out = os.path.join(out_dir, f"lib{name}_{tag}.so")
-    res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, *defines,
-                          "-o", out, os.path.join(root, "sqtpu_torch", "csrc",
-                                                  name + ".cu")],
-                         check=True, capture_output=True, text=True,
-                         timeout=_build.NVCC_TIMEOUT_S)
+    checkout's nvcc flags (and ``defines``), loaded and typed by
+    ``_build.library``; an explicit build's registers are kept."""
+    csrc = os.path.join(root, "sqtpu_torch", "csrc")
+    log = _build.build(name, defines, csrc)
     if name == "explicit":
-        REGISTERS[f"{name}_{tag}"] = {e: S.registers_of(res.stderr, e)
+        REGISTERS[f"{name}_{tag}"] = {e: S.registers_of(log, e)
                                       for e in EXPLICIT_ENTRIES}
-    return BIND[name](ctypes.CDLL(out))
+    return _build.library(name, _build.library_path(name, defines, csrc))
 
 
 def k1_launch(lib, img_xy, par, n: int, n_cols: int):
@@ -264,87 +258,85 @@ def main(argv=None) -> dict:
     ap.add_argument("--other", default="", help="root of another checkout")
     args = ap.parse_args(argv)
     dev = torch.device("cuda")
-    libs = {"hardrender": {"this": H._lib()}, "implicit": {"this": K._lib()},
-            "explicit": {"this": KE._lib()}}
+    libs = {name: {"this": _build.library(name)}
+            for name in ("hardrender", "implicit", "explicit")}
     here = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory() as tmp:
+    if args.other:
+        for name, pair in libs.items():
+            pair["other"] = build_lib(args.other, name, "other")
+    uncut = build_lib(here, "implicit", "uncut", "-DSQTPU_IMPLICIT_CULL=0")
+    uncut_explicit = build_lib(here, "explicit", "uncut",
+                               "-DSQTPU_EXPLICIT_CULL=0")
+    out = {"card": S.card_line(), "k3": {}, "k4": {}, "k5": {},
+           "uncut": uncut_rows(libs["implicit"]["this"], uncut, dev),
+           "explicit_uncut": explicit_uncut_rows(
+               libs["explicit"]["this"], uncut_explicit, dev)}
+
+    with np.load(S.TRUTHS) as d:
+        p = torch.as_tensor(d["true_params"][:S.BATCH].astype(np.float32),
+                            device=dev)
+    k3 = libs["hardrender"]
+    for n_sweep, n_bisect in ((S.EVAL_SWEEP, S.EVAL_BISECT),
+                              (S.TRAIN_SWEEP, S.TRAIN_BISECT)):
+        par = H.pack_frames(p, n_sweep)
+        row = {"launch_ms": in_turns({k: (lambda lib=lib: H._launch(
+                   par, S.IMAGE, n_sweep, n_bisect, True, lib))
+                   for k, lib in k3.items()}),
+               "wrapper_ms": S.cuda_ms(lambda: H.render_depth_hard_cuda(
+                   p, S.IMAGE, n_sweep, n_bisect)),
+               "pack_ms": S.cuda_ms(lambda: H.pack_frames(p, n_sweep))}
         if args.other:
-            for name, pair in libs.items():
-                pair["other"] = build_lib(args.other, name, tmp, "other")
-        uncut = build_lib(here, "implicit", tmp, "uncut",
-                          "-DSQTPU_IMPLICIT_CULL=0")
-        uncut_explicit = build_lib(here, "explicit", tmp, "uncut",
-                                   "-DSQTPU_EXPLICIT_CULL=0")
-        out = {"card": S.card_line(), "k3": {}, "k4": {}, "k5": {},
-               "uncut": uncut_rows(libs["implicit"]["this"], uncut, dev),
-               "explicit_uncut": explicit_uncut_rows(
-                   libs["explicit"]["this"], uncut_explicit, dev)}
+            a, b = (H._launch(par, S.IMAGE, n_sweep, n_bisect, True,
+                              k3[k]) for k in ("this", "other"))
+            row["pixels_differ"] = int((a != b).sum())
+        out["k3"][f"{n_sweep}/{n_bisect}"] = row
 
-        with np.load(S.TRUTHS) as d:
-            p = torch.as_tensor(d["true_params"][:S.BATCH].astype(np.float32),
-                                device=dev)
-        k3 = libs["hardrender"]
-        for n_sweep, n_bisect in ((S.EVAL_SWEEP, S.EVAL_BISECT),
-                                  (S.TRAIN_SWEEP, S.TRAIN_BISECT)):
-            par = H.pack_frames(p, n_sweep)
-            row = {"launch_ms": in_turns({k: (lambda lib=lib: H._launch(
-                       par, S.IMAGE, n_sweep, n_bisect, True, lib))
-                       for k, lib in k3.items()}),
-                   "wrapper_ms": S.cuda_ms(lambda: H.render_depth_hard_cuda(
-                       p, S.IMAGE, n_sweep, n_bisect)),
-                   "pack_ms": S.cuda_ms(lambda: H.pack_frames(p, n_sweep))}
-            if args.other:
-                a, b = (H._launch(par, S.IMAGE, n_sweep, n_bisect, True,
-                                  k3[k]) for k in ("this", "other"))
-                row["pixels_differ"] = int((a != b).sum())
-            out["k3"][f"{n_sweep}/{n_bisect}"] = row
+    n = S.LOSS_N
+    _, k3_imgs, pred, _ = S.implicit_inputs(dev, 7)
+    out["k1_k2"] = implicit_rows(libs["implicit"], K.image_plane(
+        k3_imgs, n), K.pack_params(pred, n), n, n)
+    _, k3_imgs, pred, _ = S.implicit_inputs(dev, 15)
+    cols = S.SLAB_COLS[0]
+    out["k6"] = implicit_rows(
+        libs["implicit"], K.slab_plane(nearest_resize(
+            k3_imgs, (n, n))[:, :, :cols].contiguous()),
+        K.pack_params(pred, n, x0=0), n, cols)
 
-        n = S.LOSS_N
-        _, k3_imgs, pred, _ = S.implicit_inputs(dev, 7)
-        out["k1_k2"] = implicit_rows(libs["implicit"], K.image_plane(
-            k3_imgs, n), K.pack_params(pred, n), n, n)
-        _, k3_imgs, pred, _ = S.implicit_inputs(dev, 15)
-        cols = S.SLAB_COLS[0]
-        out["k6"] = implicit_rows(
-            libs["implicit"], K.slab_plane(nearest_resize(
-                k3_imgs, (n, n))[:, :, :cols].contiguous()),
-            K.pack_params(pred, n, x0=0), n, cols)
-
-        truths, pred = S.explicit_inputs(dev)
-        n, sharp = S.EXPLICIT_N, S.EXPLICIT_SHARP
-        par_t, par_p = KE.pack_params(truths, pred, n, True,
-                                      KE.default_margin(sharp))
-        k4 = libs["explicit"]
-        out["k4"]["launch_ms"] = in_turns({k: (
-            lambda lib=lib: KE._launch_fused(par_t, par_p, n, sharp, lib))
-            for k, lib in k4.items()})
-        out["k5"]["launch_ms"] = in_turns({k: (
-            lambda lib=lib: KE._launch_fwd(par_t, par_p, n, sharp, lib))
-            for k, lib in k4.items()})
-        s4, _ = KE._launch_fused(par_t, par_p, n, sharp, k4["this"])
-        s5 = KE._launch_fwd(par_t, par_p, n, sharp, k4["this"])
-        out["k5"]["lanes"] = {
-            "cut": warp_lanes(par_t, par_p, n, sharp, True),
-            "uncut": warp_lanes(par_t, par_p, n, sharp, False)}
-        out["k5"]["vs_k4"] = {
-            "max_rel_sum": float(((s5 - s4).abs() / s4.abs()).max()),
-            "identical": same_bits(s5, s4)}
-        if args.other:
-            (sa, ga), (sb, gb) = (KE._launch_fused(par_t, par_p, n, sharp,
-                                                   k4[k])
-                                  for k in ("this", "other"))
-            out["k4"]["max_rel_sum"] = float(((sa - sb).abs()
-                                              / sb.abs()).max())
-            out["k4"]["max_abs_grad"] = float((ga - gb).abs().max())
-            out["k4"]["max_grad"] = float(gb.abs().max())
-            out["k4"]["identical"] = bool(torch.equal(sa, sb)
-                                          and torch.equal(ga, gb))
-            s5a, s5b = (KE._launch_fwd(par_t, par_p, n, sharp, k4[k])
-                        for k in ("this", "other"))
-            out["k5"]["max_rel_sum"] = float(((s5a - s5b).abs()
-                                              / s5b.abs()).max())
-            out["k5"]["identical"] = bool(torch.equal(s5a, s5b))
-        torch.cuda.synchronize()
+    truths, pred = S.explicit_inputs(dev)
+    n, sharp = S.EXPLICIT_N, S.EXPLICIT_SHARP
+    par_t, par_p = KE.pack_params(truths, pred, n, True,
+                                  KE.default_margin(sharp))
+    k4 = libs["explicit"]
+    out["k4"]["launch_ms"] = in_turns({k: (
+        lambda lib=lib: KE._launch_fused(par_t, par_p, n, sharp, lib))
+        for k, lib in k4.items()})
+    out["k5"]["launch_ms"] = in_turns({k: (
+        lambda lib=lib: KE._launch_fwd(par_t, par_p, n, sharp, lib))
+        for k, lib in k4.items()})
+    s4, _ = KE._launch_fused(par_t, par_p, n, sharp, k4["this"])
+    s5 = KE._launch_fwd(par_t, par_p, n, sharp, k4["this"])
+    out["k5"]["lanes"] = {
+        "cut": warp_lanes(par_t, par_p, n, sharp, True),
+        "uncut": warp_lanes(par_t, par_p, n, sharp, False)}
+    out["k5"]["vs_k4"] = {
+        "max_rel_sum": float(((s5 - s4).abs() / s4.abs()).max()),
+        "identical": same_bits(s5, s4)}
+    if args.other:
+        (sa, ga), (sb, gb) = (KE._launch_fused(par_t, par_p, n, sharp,
+                                               k4[k])
+                              for k in ("this", "other"))
+        out["k4"]["max_rel_sum"] = float(((sa - sb).abs()
+                                          / sb.abs()).max())
+        out["k4"]["max_abs_grad"] = float((ga - gb).abs().max())
+        out["k4"]["max_grad"] = float(gb.abs().max())
+        out["k4"]["identical"] = bool(torch.equal(sa, sb)
+                                      and torch.equal(ga, gb))
+        s5a, s5b = (KE._launch_fwd(par_t, par_p, n, sharp, k4[k])
+                    for k in ("this", "other"))
+        out["k5"]["max_rel_sum"] = float(((s5a - s5b).abs()
+                                          / s5b.abs()).max())
+        out["k5"]["identical"] = bool(torch.equal(s5a, s5b))
+    torch.cuda.synchronize()
     out["registers"] = REGISTERS
     print(json.dumps(out), flush=True)
     return out

@@ -115,9 +115,10 @@ def _power_chain(x2, y2, z2, e1, e2, *, guard: bool):
     return torch.pow(E + C + tiny, e1)
 
 
-def _rotated_frame(p: torch.Tensor):
+def rotated_frame(p: torch.Tensor):
     """Sizes, exponents, R(q*)·t and R(q*): the reference rotates the
-    space, not the superquadric."""
+    space, not the superquadric. The one frame of the plain fields and of
+    every kernel's packed rows."""
     a, e, t, q = split_params(p)
     rot = quat.to_matrix(quat.conjugate(q))  # (..., 3, 3)
     tr = torch.einsum("...ij,...j->...i", rot, t)
@@ -128,7 +129,7 @@ def field_grid(ax_x: torch.Tensor, ax_y: torch.Tensor, ax_z: torch.Tensor,
                p: torch.Tensor, *, guard: bool = True) -> torch.Tensor:
     """F^(e1) on a separable grid: (Nx, Ny, Nz) for p of shape (12,),
     (B, Nx, Ny, Nz) for p of shape (B, 12)."""
-    a, e, tr, rot = _rotated_frame(p)
+    a, e, tr, rot = rotated_frame(p)
     lead = p.shape[:-1]
     pad = (1,) * 3
 
@@ -151,7 +152,7 @@ def field_points(points: torch.Tensor, p: torch.Tensor, *,
     """F^(e1) at arbitrary world points: ``points`` (..., N, 3) and ``p``
     (..., 12) with the same leading dims (none for one superquadric) ->
     (..., N); F < 1 inside, > 1 outside."""
-    a, e, tr, rot = _rotated_frame(p)
+    a, e, tr, rot = rotated_frame(p)
     rp = torch.einsum("...ij,...nj->...ni", rot, points)
 
     def s(v):  # a per-sample scalar, broadcast over the points

@@ -27,8 +27,9 @@ version. There is no silent fallback from the card to the plain version.
   ``iou_full`` send CUDA tensors to it and keep the plain grids for CPU
   tensors.
 
-Each kernel's wrapper counts its launches; :func:`launch_counts` reads the
-counters and :func:`reset_launches` sets them to 0.
+Each kernel's wrapper counts its launches in one table of ``_build.py``,
+the boundary every wrapper launches through; :func:`launch_counts` reads
+it and :func:`reset_launches` sets it to 0.
 """
 
 from sqtpu_torch.ops.kernels.hardrender import (  # noqa: F401
@@ -42,20 +43,11 @@ from sqtpu_torch.ops.kernels.explicit import (  # noqa: F401
     explicit_loss_cuda as explicit_loss_auto,
 )
 from sqtpu_torch.ops.kernels.voxel_iou import voxel_iou_cuda  # noqa: F401
-from sqtpu_torch.ops.kernels import explicit, hardrender, implicit, voxel_iou
+from sqtpu_torch.ops.kernels import _build
+from sqtpu_torch.ops.kernels._build import reset_launches  # noqa: F401
 
 
 def launch_counts() -> dict:
     """Launches of every kernel since the last :func:`reset_launches`:
     K3, K1, K2, K4, K5, K6's forward and backward, and K7."""
-    return {"K3": hardrender.launches, "K1": implicit.fwd_launches,
-            "K2": implicit.bwd_launches, "K4": explicit.fused_launches,
-            "K5": explicit.fwd_launches, "K6": implicit.slab_fwd_launches,
-            "K6_bwd": implicit.slab_bwd_launches, "K7": voxel_iou.launches}
-
-
-def reset_launches() -> None:
-    hardrender.reset_launches()
-    implicit.reset_launches()
-    explicit.reset_launches()
-    voxel_iou.reset_launches()
+    return dict(_build.launches)

@@ -19,7 +19,7 @@ labels are constants in every consumer, as the JAX kernel's contract says
 (use :func:`sqtpu_torch.ops.losses.explicit_loss` for d/d true).
 
 The torch side is the JAX wrapper's, step for step: the clamp, R(q*) and
-R(q*)·t of both sides (:func:`frame_params`, shared with the implicit
+R(q*)·t of both sides (``sq_field.frame_params``, shared with the implicit
 wrapper) stay in torch autograd around a ``torch.autograd.Function``; the
 window (:func:`z_window_indices`) is the union of both clamped shapes'
 z-support boxes ± ``z_margin`` and carries no gradient; the per-sample sums
@@ -50,57 +50,15 @@ import torch
 
 from sqtpu_torch.ops import geometry
 from sqtpu_torch.ops import losses
-from sqtpu_torch.ops import quaternion as quat
-from sqtpu_torch.ops.kernels.implicit import (
-    MAX_BATCH, PAR_STRIDE, SLOT_JHI, SLOT_JLO, _raise_on, _sweep_setup,
-    _zval, check_operand, frame_params,
-)
+from sqtpu_torch.ops.kernels import _build, sq_field
 from sqtpu_torch.ops.kernels.sq_field import (
-    N_PAR, SEP_SUMS, _body_origin, _box_planes, _field_terms_lin,
-    _occupancy, _recip, _Recip, _sep_finish, _sep_grad_step,
-    box_half_width, cull_sound,
+    N_PAR, PAR_STRIDE, SEP_SUMS, _body_origin, _box_planes, _field_terms_lin,
+    _occupancy, _recip, _Recip, _sep_finish, _sep_grad_step, _sweep_setup,
+    _zval, box_half_width, check_operands, cull_sound, frame_params,
 )
 
 SHARP = 5.0      # the reference's occupancy sharpness
 Z_MARGIN = 0.08  # window margin at SHARP, normalized z units
-
-# Launches of K4 and K5 since the last reset_launches(); each wrapper adds
-# one where it launches its kernel and nowhere else.
-fused_launches = 0
-fwd_launches = 0
-
-
-def reset_launches() -> None:
-    global fused_launches, fwd_launches
-    fused_launches = fwd_launches = 0
-
-
-def _lib() -> ctypes.CDLL:
-    from sqtpu_torch.ops.kernels import _build
-
-    return bind(_build.load("explicit"))
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Type the C entries of a library built from ``csrc/explicit.cu``
-    (this package's, or another checkout's for ``kernel_ab.py``); returns
-    it."""
-    if not getattr(lib, "_sqtpu_typed", False):
-        ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.sqtpu_explicit_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f64,
-                                           ptr]
-        lib.sqtpu_explicit_fwd.restype = i32
-        lib.sqtpu_explicit_fused.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
-                                             i32, i32, f64, ptr]
-        lib.sqtpu_explicit_fused.restype = i32
-        lib.sqtpu_explicit_blocks.argtypes = [i32]
-        lib.sqtpu_explicit_blocks.restype = i32
-        lib.sqtpu_explicit_fused_blocks.argtypes = [i32]
-        lib.sqtpu_explicit_fused_blocks.restype = i32
-        lib.sqtpu_error_string.argtypes = [i32]
-        lib.sqtpu_error_string.restype = ctypes.c_char_p
-        lib._sqtpu_typed = True
-    return lib
 
 
 # ---------------------------------------------------------------------------
@@ -113,26 +71,13 @@ def default_margin(sharp: float) -> float:
     return max(Z_MARGIN * SHARP / sharp, 0.02)
 
 
-@torch.no_grad()
 def z_window_indices(true_p: torch.Tensor, pred_p: torch.Tensor, n: int,
                      margin: float = Z_MARGIN):
     """Per-sample lattice window [j_lo, j_hi] on the explicit axis (z_j =
     j/N) covering the union of both clamped superquadrics' z-support boxes
     ± ``margin``, as float32 indices with no gradient."""
-    def win(p):
-        pp = geometry.clamp_params(p.to(torch.float32))
-        a, e, t, q = geometry.split_params(pp)
-        rot = quat.to_matrix(quat.conjugate(q))
-        zlo, zhi, _ = geometry.z_support_window(a, rot, t, 2)
-        return zlo, zhi
-
-    lo_t, hi_t = win(true_p)
-    lo_p, hi_p = win(pred_p)
-    zlo = torch.clamp(torch.minimum(lo_t, lo_p) - margin, 0.0, 1.0)
-    zhi = torch.clamp(torch.maximum(hi_t, hi_p) + margin, 0.0, 1.0)
-    jlo = torch.ceil(zlo * n)
-    jhi = torch.maximum(torch.floor(zhi * n), jlo)
-    return jlo, jhi
+    return sq_field.z_window([true_p.to(torch.float32),
+                              pred_p.to(torch.float32)], n, margin)
 
 
 def pack_params(true_p: torch.Tensor, pred_p: torch.Tensor, n: int,
@@ -142,17 +87,9 @@ def pack_params(true_p: torch.Tensor, pred_p: torch.Tensor, n: int,
     [0, N]) in slots 17-18. The true row carries no gradient; pred's is
     differentiable in the frame scalars."""
     par_t = frame_params(true_p.detach()).contiguous()
-    par = frame_params(pred_p)
-    tail = torch.zeros((par.shape[0], PAR_STRIDE - N_PAR), dtype=par.dtype,
-                       device=par.device)
-    if z_window:
-        jlo, jhi = z_window_indices(true_p, pred_p, n, z_margin)
-        tail[:, SLOT_JLO - N_PAR] = jlo
-        tail[:, SLOT_JHI - N_PAR] = jhi
-    else:
-        tail[:, SLOT_JHI - N_PAR] = float(n)
-    par_p = torch.cat([par[:, :N_PAR], tail], dim=-1).contiguous()
-    return par_t, par_p
+    window = (z_window_indices(true_p, pred_p, n, z_margin) if z_window
+              else None)
+    return par_t, sq_field.pack_row(pred_p, n, window)
 
 
 # ---------------------------------------------------------------------------
@@ -257,61 +194,43 @@ def cull_points(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
 # The kernels
 # ---------------------------------------------------------------------------
 
-def _check_operands(n: int, par_t: torch.Tensor, par_p: torch.Tensor) -> None:
-    """Raise unless both rows are (B, 24) float32, contiguous and on one
-    CUDA device, with B and N within what the kernels take."""
-    b = par_p.shape[0]
-    if not 0 < b <= MAX_BATCH:
-        raise ValueError(f"batch {b} outside the kernels' grid "
-                         f"(1..{MAX_BATCH})")
-    if n < 2:
-        raise ValueError(f"need render size n >= 2, got {n}")
-    for name, t in (("pred params", par_p), ("true params", par_t)):
-        check_operand(name, t, (b, PAR_STRIDE), par_p.device)
-
-
 def cuda_fwd(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
              sharp: float) -> torch.Tensor:
     """K5 on the card: same contract as :func:`emulate_fwd`."""
-    global fwd_launches
     sums = _launch_fwd(par_t, par_p, n, sharp)
-    fwd_launches += 1
+    _build.count("K5")
     return sums
 
 
 def cuda_fused(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
                sharp: float):
     """K4 on the card: same contract as :func:`emulate_fused`."""
-    global fused_launches
     out = _launch_fused(par_t, par_p, n, sharp)
-    fused_launches += 1
+    _build.count("K4")
     return out
 
 
 def _launch_fwd(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
                 sharp: float, lib: ctypes.CDLL | None = None):
     """K5 of ``lib`` (default: this package's) on the card."""
-    _check_operands(n, par_t, par_p)
-    lib = _lib() if lib is None else lib
+    check_operands(n, n, {"pred params": par_p, "true params": par_t})
+    lib = _build.library("explicit") if lib is None else lib
     b = par_p.shape[0]
     blocks = lib.sqtpu_explicit_blocks(n)
     partial = torch.empty((b, blocks), dtype=torch.float32,
                           device=par_p.device)
     sums = torch.empty((b,), dtype=torch.float32, device=par_p.device)
-    with torch.cuda.device(par_p.device):
-        stream = torch.cuda.current_stream(par_p.device).cuda_stream
-        err = lib.sqtpu_explicit_fwd(par_t.data_ptr(), par_p.data_ptr(),
-                                     partial.data_ptr(), sums.data_ptr(), b,
-                                     n, float(sharp), stream)
-    _raise_on(lib, err, "explicit loss (K5)")
+    _build.launch(lib, "sqtpu_explicit_fwd", par_p.device, par_t.data_ptr(),
+                  par_p.data_ptr(), partial.data_ptr(), sums.data_ptr(), b,
+                  n, float(sharp), what="explicit loss (K5)")
     return sums
 
 
 def _launch_fused(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
                   sharp: float, lib: ctypes.CDLL | None = None):
     """K4 of ``lib`` (default: this package's) on the card."""
-    _check_operands(n, par_t, par_p)
-    lib = _lib() if lib is None else lib
+    check_operands(n, n, {"pred params": par_p, "true params": par_t})
+    lib = _build.library("explicit") if lib is None else lib
     b = par_p.shape[0]
     blocks = lib.sqtpu_explicit_fused_blocks(n)
     dev = par_p.device
@@ -320,13 +239,11 @@ def _launch_fused(par_t: torch.Tensor, par_p: torch.Tensor, n: int,
                                device=dev)
     sums = torch.empty((b,), dtype=torch.float32, device=dev)
     dpar = torch.empty((b, PAR_STRIDE), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sqtpu_explicit_fused(
-            par_t.data_ptr(), par_p.data_ptr(), partial_sum.data_ptr(),
-            partial_grad.data_ptr(), sums.data_ptr(), dpar.data_ptr(), b, n,
-            float(sharp), stream)
-    _raise_on(lib, err, "explicit loss value and gradient (K4)")
+    _build.launch(lib, "sqtpu_explicit_fused", dev, par_t.data_ptr(),
+                  par_p.data_ptr(), partial_sum.data_ptr(),
+                  partial_grad.data_ptr(), sums.data_ptr(), dpar.data_ptr(),
+                  b, n, float(sharp),
+                  what="explicit loss value and gradient (K4)")
     return sums, dpar
 
 
@@ -424,6 +341,4 @@ def explicit_loss_emulated(true_p: torch.Tensor, pred_p: torch.Tensor,
 def window_points(par_p: torch.Tensor, n: int) -> int:
     """In-window (x, y, z) lattice points the kernels visit for these
     packed pred params: Σ_b (j_hi − j_lo + 1) · (N+1)²."""
-    span = par_p[:, SLOT_JHI].to(torch.int64) - par_p[:, SLOT_JLO].to(
-        torch.int64) + 1
-    return int(span.sum()) * (n + 1) ** 2
+    return sq_field.window_points(par_p, (n + 1) ** 2)

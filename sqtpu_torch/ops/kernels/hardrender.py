@@ -27,42 +27,11 @@ import math
 import torch
 
 from sqtpu_torch.ops import geometry
-from sqtpu_torch.ops import quaternion as quat
+from sqtpu_torch.ops.kernels import _build
 from sqtpu_torch.ops.render import render_depth_hard_batch
 from sqtpu_torch.utils.profiling import span
 
-PAR_STRIDE = 24  # floats per sample in the packed frame scalars
-
-# Launches of the CUDA kernel since the last reset_launches(); the wrapper
-# adds one where it launches and nowhere else.
-launches = 0
-
-
-def reset_launches() -> None:
-    global launches
-    launches = 0
-
-
-def _lib() -> ctypes.CDLL:
-    from sqtpu_torch.ops.kernels import _build
-
-    return bind(_build.load("hardrender"))
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Type the C entries of a library built from ``csrc/hardrender.cu``
-    (this package's, or another checkout's for ``kernel_ab.py``); returns
-    it."""
-    if not getattr(lib, "_sqtpu_typed", False):
-        fn = lib.sqtpu_hardrender
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.sqtpu_error_string.argtypes = [ctypes.c_int]
-        lib.sqtpu_error_string.restype = ctypes.c_char_p
-        lib._sqtpu_typed = True
-    return lib
+PAR_STRIDE = 24  # floats per sample in K3's packed frame scalars
 
 
 def pack_frames(p: torch.Tensor, n_sweep: int) -> torch.Tensor:
@@ -71,10 +40,9 @@ def pack_frames(p: torch.Tensor, n_sweep: int) -> torch.Tensor:
     z_hi (18), step (19), zero padding (20-23)."""
     p = p.to(torch.float32)
     b = p.shape[0]
-    a, e, t, q = geometry.split_params(p)
-    rot = quat.to_matrix(quat.conjugate(q))
-    tr = torch.einsum("bij,bj->bi", rot, t)
-    _, z_hi, step = geometry.z_support_window(a, rot, t, n_sweep)
+    a, e, tr, rot = geometry.rotated_frame(p)
+    _, z_hi, step = geometry.z_support_window(
+        a, rot, geometry.split_params(p).t, n_sweep)
     return torch.cat([
         a,
         (1.0 / e[:, 1])[:, None],
@@ -92,7 +60,6 @@ def render_depth_hard_cuda(p: torch.Tensor, image_size: int = 256,
                            quantize: bool = True) -> torch.Tensor:
     """(B, 12) params -> (B, S, S) float32 depth maps, image layout; the
     span ``ops.render_hard`` (:mod:`sqtpu_torch.utils.profiling`)."""
-    global launches
     if p.ndim != 2 or p.shape[-1] != geometry.N_PARAMS:
         raise ValueError(f"params must be (B, 12), got {tuple(p.shape)}")
     if not p.is_floating_point():
@@ -112,7 +79,7 @@ def render_depth_hard_cuda(p: torch.Tensor, image_size: int = 256,
                              "(1..65535)")
         out = _launch(pack_frames(p, n_sweep), image_size, n_sweep, n_bisect,
                       quantize)
-        launches += 1
+        _build.count("K3")
         return out
 
 
@@ -129,15 +96,10 @@ def _launch(par: torch.Tensor, image_size: int, n_sweep: int,
         raise RuntimeError("packed frame scalars have the wrong layout")
     out = torch.empty((b, image_size, image_size), dtype=torch.float32,
                       device=par.device)
-    lib = _lib() if lib is None else lib
-    with torch.cuda.device(par.device):
-        stream = torch.cuda.current_stream(par.device).cuda_stream
-        err = lib.sqtpu_hardrender(par.data_ptr(), out.data_ptr(), b,
-                                   image_size, n_sweep, n_bisect,
-                                   int(bool(quantize)), stream)
-    if err != 0:
-        raise RuntimeError("hardrender kernel launch failed: "
-                           + lib.sqtpu_error_string(err).decode())
+    lib = _build.library("hardrender") if lib is None else lib
+    _build.launch(lib, "sqtpu_hardrender", par.device, par.data_ptr(),
+                  out.data_ptr(), b, image_size, n_sweep, n_bisect,
+                  int(bool(quantize)), what="hardrender")
     return out
 
 

@@ -16,7 +16,7 @@ W_j = Tacc − V + T_j, and accumulates the gradient of the 17 frame
 scalars (a, e, R(q*)·t, R(q*)) and the image cotangent.
 
 The torch side is the JAX wrapper's, step for step: the clamp, R(q*) and
-t_rot = R·t (:func:`frame_params`) stay in torch autograd around a
+t_rot = R·t (``sq_field.frame_params``) stay in torch autograd around a
 ``torch.autograd.Function`` (the ``custom_vjp`` of the JAX package), so
 clamped-out parameters get zero gradient; the z window
 (:func:`z_window_indices`) carries no gradient; the image is resized,
@@ -57,94 +57,28 @@ import torch
 
 from sqtpu_torch.ops import geometry
 from sqtpu_torch.ops import losses
-from sqtpu_torch.ops import quaternion as quat
 from sqtpu_torch.ops import render
 from sqtpu_torch.ops.image import nearest_resize
+from sqtpu_torch.ops.kernels import _build, sq_field
 from sqtpu_torch.ops.kernels.sq_field import (
-    N_PAR, SEP_SUMS, _body_origin, _box_planes, _field_terms_lin,
-    _occupancy, _recip, _Recip, _sep_finish, _sep_grad_step, box_half_width,
-    cull_sound,
+    N_PAR, PAR_STRIDE, SEP_SUMS, _body_origin, _box_planes, _field_terms_lin,
+    _occupancy, _recip, _Recip, _sep_finish, _sep_grad_step, _sweep_setup,
+    _Sweep, _zval, box_half_width, check_operands, cull_sound,
 )
 
-PAR_STRIDE = 24    # floats per sample in the packed parameters
 Z_MARGIN = 0.05    # z-window margin, normalized z units
-# slots 17..19 carry the z window [j_lo, j_hi] as float lattice indices and
-# the x-column offset of the plane slab; 20..23 are zero
-SLOT_JLO, SLOT_JHI, SLOT_X0 = 17, 18, 19
-MAX_BATCH = 65535        # the kernels' grid.y
-
-# Launches of K1 and K2 on the whole plane, and of K6 (the same kernels on
-# a column slab, forward and backward), since the last reset_launches();
-# each wrapper adds one where it launches its kernel and nowhere else.
-fwd_launches = 0
-bwd_launches = 0
-slab_fwd_launches = 0
-slab_bwd_launches = 0
-
-
-def reset_launches() -> None:
-    global fwd_launches, bwd_launches, slab_fwd_launches, slab_bwd_launches
-    fwd_launches = bwd_launches = slab_fwd_launches = slab_bwd_launches = 0
-
-
-def _lib() -> ctypes.CDLL:
-    from sqtpu_torch.ops.kernels import _build
-
-    return bind(_build.load("implicit"))
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Type the C entries of a library built from ``csrc/implicit.cu``
-    (this package's, or another checkout's or build's for ``kernel_ab.py``);
-    returns it."""
-    if not getattr(lib, "_sqtpu_typed", False):
-        ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.sqtpu_implicit_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                           i32, f64, f64, ptr]
-        lib.sqtpu_implicit_fwd.restype = i32
-        lib.sqtpu_implicit_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                           i32, i32, i32, f64, f64, ptr]
-        lib.sqtpu_implicit_bwd.restype = i32
-        lib.sqtpu_implicit_blocks.argtypes = [i32, i32]
-        lib.sqtpu_implicit_blocks.restype = i32
-        lib.sqtpu_error_string.argtypes = [i32]
-        lib.sqtpu_error_string.restype = ctypes.c_char_p
-        lib._sqtpu_typed = True
-    return lib
 
 
 # ---------------------------------------------------------------------------
 # The wrapper's torch side (sqtpu/ops/kernels/implicit.py:258-270, 473-540)
 # ---------------------------------------------------------------------------
 
-def frame_params(p: torch.Tensor) -> torch.Tensor:
-    """Clamp a (B, 12) batch and expand it to the (B, 24) frame layout
-    [a(3), e(2), R(q*)·t(3), R(q*)(9), 0(7)], differentiably. Keeps a
-    float64 input in float64 (the CUDA path takes float32)."""
-    pp = geometry.clamp_params(p)
-    a, e, t, q = geometry.split_params(pp)
-    rot = quat.to_matrix(quat.conjugate(q))
-    tr = torch.einsum("bij,bj->bi", rot, t)
-    return torch.cat([a, e, tr, rot.reshape(-1, 9),
-                      pp.new_zeros((pp.shape[0], PAR_STRIDE - N_PAR))],
-                     dim=-1)
-
-
-@torch.no_grad()
 def z_window_indices(pred_p: torch.Tensor, n: int,
                      margin: float = Z_MARGIN):
     """Per-sample lattice window [j_lo, j_hi] on the implicit axis
     (z_j = j/(n−1)) covering the clamped superquadric's z-support box ±
     ``margin``, as float indices with no gradient."""
-    pp = geometry.clamp_params(pred_p)
-    a, e, t, q = geometry.split_params(pp)
-    rot = quat.to_matrix(quat.conjugate(q))
-    zlo, zhi, _ = geometry.z_support_window(a, rot, t, 2)
-    zlo = torch.clamp(zlo - margin, 0.0, 1.0)
-    zhi = torch.clamp(zhi + margin, 0.0, 1.0)
-    jlo = torch.ceil(zlo * (n - 1))
-    jhi = torch.maximum(torch.floor(zhi * (n - 1)), jlo)
-    return jlo, jhi
+    return sq_field.z_window([pred_p], n - 1, margin)
 
 
 def pack_params(pred_p: torch.Tensor, n: int, z_window: bool = True,
@@ -152,17 +86,8 @@ def pack_params(pred_p: torch.Tensor, n: int, z_window: bool = True,
     """(B, 12) params -> the kernels' (B, 24) parameters: the frame
     scalars with the z window (or the full sweep [0, n−1]) and the slab's
     x offset in slots 17-19. Differentiable in the frame scalars."""
-    par = frame_params(pred_p)
-    tail = torch.zeros((par.shape[0], PAR_STRIDE - N_PAR), dtype=par.dtype,
-                       device=par.device)
-    if z_window:
-        jlo, jhi = z_window_indices(pred_p, n, z_margin)
-        tail[:, SLOT_JLO - N_PAR] = jlo
-        tail[:, SLOT_JHI - N_PAR] = jhi
-    else:
-        tail[:, SLOT_JHI - N_PAR] = float(n - 1)
-    tail[:, SLOT_X0 - N_PAR] = float(x0)
-    return torch.cat([par[:, :N_PAR], tail], dim=-1).contiguous()
+    window = z_window_indices(pred_p, n, z_margin) if z_window else None
+    return sq_field.pack_row(pred_p, n - 1, window, x0)
 
 
 def image_plane(img: torch.Tensor, n: int, dtype=torch.float32):
@@ -183,39 +108,6 @@ def slab_plane(img_slab: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # The emulation of the kernels' algorithm (the analogue of interpret mode)
 # ---------------------------------------------------------------------------
-
-class _Sweep(NamedTuple):
-    pp: list          # 17 frame scalars, each (B, 1)
-    X: torch.Tensor   # (B, P) plane coordinates
-    Y: torch.Tensor
-    lo: torch.Tensor  # (B, 1) window bounds, int64
-    hi: torch.Tensor
-    inv: float
-
-
-def _sweep_setup(par: torch.Tensor, n: int, n_cols: int) -> _Sweep:
-    """Coordinates of the (x_local·n + y) plane as the kernels compute
-    them: lattice index 0 maps to 1e-4, any other k to k/(n−1); x is
-    offset by slot 19."""
-    dev = par.device
-    idx = torch.arange(n * n_cols, device=dev)
-    x0 = par[:, SLOT_X0].to(torch.int64)[:, None]
-    xi = (idx // n)[None, :] + x0
-    yi = (idx % n)[None, :].expand_as(xi)
-    inv = 1.0 / (n - 1)
-    X = torch.where(xi == 0, 1e-4, xi.to(par.dtype) * inv)
-    Y = torch.where(yi == 0, 1e-4, yi.to(par.dtype) * inv)
-    pp = [par[:, i:i + 1] for i in range(N_PAR)]
-    lo = par[:, SLOT_JLO].to(torch.int64)[:, None]
-    hi = par[:, SLOT_JHI].to(torch.int64)[:, None]
-    return _Sweep(pp, X, Y, lo, hi, inv)
-
-
-def _zval(j: int, inv: float, like: torch.Tensor) -> torch.Tensor:
-    if j == 0:
-        return like.new_tensor(1e-4)
-    return like.new_tensor(float(j)) * inv
-
 
 class _Rays(NamedTuple):
     sw: _Sweep
@@ -328,66 +220,22 @@ def emulate_bwd(img_xy: torch.Tensor, par: torch.Tensor, tacc: torch.Tensor,
 # The kernels
 # ---------------------------------------------------------------------------
 
-def _check_operands(n: int, n_cols: int, par: torch.Tensor, planes=(),
-                    vectors=()) -> None:
-    """Raise unless ``par`` is (B, 24), each of ``planes`` (B, n·n_cols)
-    and each of ``vectors`` (B,), all float32, contiguous and on one CUDA
-    device, with B and n within what the kernels take."""
-    b = par.shape[0]
-    if not 0 < b <= MAX_BATCH:
-        raise ValueError(f"batch {b} outside the kernels' grid "
-                         f"(1..{MAX_BATCH})")
-    if n < 2 or not 0 < n_cols <= n:
-        raise ValueError(f"need n >= 2 and 0 < n_cols <= n, got {n}, "
-                         f"{n_cols}")
-    want = [("params", par, (b, PAR_STRIDE))]
-    want += [("plane", t, (b, n * n_cols)) for t in planes]
-    want += [("cotangent", t, (b,)) for t in vectors]
-    for name, t, shape in want:
-        check_operand(name, t, shape, par.device)
-
-
-def check_operand(name: str, t: torch.Tensor, shape: tuple,
-                  device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
-    the CUDA ``device``: what a kernel's launcher takes."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, the "
-                         f"kernel takes {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.device.type != "cuda" or t.device != device:
-        raise ValueError(f"{name} must be on the params' CUDA device, "
-                         f"got {t.device}")
-
-
-def _raise_on(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           + lib.sqtpu_error_string(err).decode())
-
-
 def _launch_fwd(img_xy: torch.Tensor, par: torch.Tensor, n: int,
                 n_cols: int, tau: float, sharp: float, what: str,
                 lib: ctypes.CDLL | None = None):
     """K1 of ``lib`` (default: this package's) on the card."""
-    _check_operands(n, n_cols, par, planes=(img_xy,))
-    lib = _lib() if lib is None else lib
+    check_operands(n, n_cols, {"params": par}, planes=(img_xy,))
+    lib = _build.library("implicit") if lib is None else lib
     b = par.shape[0]
     blocks = lib.sqtpu_implicit_blocks(n, n_cols)
     tacc = torch.empty_like(img_xy)
     partial = torch.empty((b, blocks), dtype=torch.float32,
                           device=par.device)
     sums = torch.empty((b,), dtype=torch.float32, device=par.device)
-    with torch.cuda.device(par.device):
-        stream = torch.cuda.current_stream(par.device).cuda_stream
-        err = lib.sqtpu_implicit_fwd(
-            par.data_ptr(), img_xy.data_ptr(), tacc.data_ptr(),
-            partial.data_ptr(), sums.data_ptr(), b, n, n_cols, float(tau),
-            float(sharp), stream)
-    _raise_on(lib, err, what)
+    _build.launch(lib, "sqtpu_implicit_fwd", par.device, par.data_ptr(),
+                  img_xy.data_ptr(), tacc.data_ptr(), partial.data_ptr(),
+                  sums.data_ptr(), b, n, n_cols, float(tau), float(sharp),
+                  what=what)
     return sums, tacc
 
 
@@ -396,8 +244,9 @@ def _launch_bwd(img_xy: torch.Tensor, par: torch.Tensor, tacc: torch.Tensor,
                 sharp: float, what: str, lib: ctypes.CDLL | None = None):
     """K2 of ``lib`` (default: this package's) on the card."""
     g = g.contiguous()
-    _check_operands(n, n_cols, par, planes=(img_xy, tacc), vectors=(g,))
-    lib = _lib() if lib is None else lib
+    check_operands(n, n_cols, {"params": par}, planes=(img_xy, tacc),
+                   vectors=(g,))
+    lib = _build.library("implicit") if lib is None else lib
     b = par.shape[0]
     blocks = lib.sqtpu_implicit_blocks(n, n_cols)
     dimg = torch.empty_like(img_xy)
@@ -405,33 +254,28 @@ def _launch_bwd(img_xy: torch.Tensor, par: torch.Tensor, tacc: torch.Tensor,
                           device=par.device)
     dpar = torch.empty((b, PAR_STRIDE), dtype=torch.float32,
                        device=par.device)
-    with torch.cuda.device(par.device):
-        stream = torch.cuda.current_stream(par.device).cuda_stream
-        err = lib.sqtpu_implicit_bwd(
-            par.data_ptr(), g.data_ptr(), img_xy.data_ptr(),
-            tacc.data_ptr(), dimg.data_ptr(), partial.data_ptr(),
-            dpar.data_ptr(), b, n, n_cols, float(tau), float(sharp), stream)
-    _raise_on(lib, err, what)
+    _build.launch(lib, "sqtpu_implicit_bwd", par.device, par.data_ptr(),
+                  g.data_ptr(), img_xy.data_ptr(), tacc.data_ptr(),
+                  dimg.data_ptr(), partial.data_ptr(), dpar.data_ptr(), b, n,
+                  n_cols, float(tau), float(sharp), what=what)
     return dpar, dimg
 
 
 def cuda_fwd(img_xy: torch.Tensor, par: torch.Tensor, n: int, n_cols: int,
              tau: float, sharp: float):
     """K1 on the card: same contract as :func:`emulate_fwd`."""
-    global fwd_launches
     out = _launch_fwd(img_xy, par, n, n_cols, tau, sharp,
                       "implicit forward (K1)")
-    fwd_launches += 1
+    _build.count("K1")
     return out
 
 
 def cuda_bwd(img_xy: torch.Tensor, par: torch.Tensor, tacc: torch.Tensor,
              g: torch.Tensor, n: int, n_cols: int, tau: float, sharp: float):
     """K2 on the card: same contract as :func:`emulate_bwd`."""
-    global bwd_launches
     out = _launch_bwd(img_xy, par, tacc, g, n, n_cols, tau, sharp,
                       "implicit backward (K2)")
-    bwd_launches += 1
+    _build.count("K2")
     return out
 
 
@@ -439,10 +283,9 @@ def cuda_slab_fwd(img_xy: torch.Tensor, par: torch.Tensor, n: int,
                   n_cols: int, tau: float, sharp: float):
     """K6's forward on the card: K1 on a slab of ``n_cols`` columns from
     the x offset in slot 19; same contract as :func:`emulate_fwd`."""
-    global slab_fwd_launches
     out = _launch_fwd(img_xy, par, n, n_cols, tau, sharp,
                       "implicit slab forward (K6)")
-    slab_fwd_launches += 1
+    _build.count("K6")
     return out
 
 
@@ -451,10 +294,9 @@ def cuda_slab_bwd(img_xy: torch.Tensor, par: torch.Tensor,
                   tau: float, sharp: float):
     """K6's backward on the card: K2 on the slab of
     :func:`cuda_slab_fwd`; same contract as :func:`emulate_bwd`."""
-    global slab_bwd_launches
     out = _launch_bwd(img_xy, par, tacc, g, n, n_cols, tau, sharp,
                       "implicit slab backward (K6)")
-    slab_bwd_launches += 1
+    _build.count("K6_bwd")
     return out
 
 
@@ -633,9 +475,7 @@ def implicit_sums_slab_emulated(img_slab: torch.Tensor, pred_p: torch.Tensor,
 def window_points(par: torch.Tensor, n: int, n_cols: int) -> int:
     """In-window (x, y, z) points for these packed params, the points the
     TPU kernels' algorithm visits: Σ_b (j_hi − j_lo + 1) · n · n_cols."""
-    span = par[:, SLOT_JHI].to(torch.int64) - par[:, SLOT_JLO].to(
-        torch.int64) + 1
-    return int(span.sum()) * n * n_cols
+    return sq_field.window_points(par, n * n_cols)
 
 
 def cull_points(par: torch.Tensor, n: int, n_cols: int, tau: float,

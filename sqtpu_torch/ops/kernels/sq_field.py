@@ -1,9 +1,16 @@
-"""The superquadric field, its gradient chain and the exact-zero cull in
-torch: the emulation's counterpart of ``sqtpu_torch/csrc/sq_field.cuh``,
-shared by the emulations of the implicit-loss kernels (K1/K2,
-``implicit.py``) and of the explicit-loss kernels (K4/K5,
-``explicit.py``).
+"""The layer under the two loss wrappers: the K1/K2/K4/K5 rows, their z
+window and the lattice, and the superquadric field, its gradient chain and
+the exact-zero cull in torch (the emulation's counterpart of
+``sqtpu_torch/csrc/sq_field.cuh``). Shared by the implicit-loss kernels'
+wrapper (K1/K2, ``implicit.py``) and the explicit-loss kernels' wrapper
+(K4/K5, ``explicit.py``).
 
+* The rows: :data:`PAR_STRIDE` floats a sample, [a(3), e(2), R(q*)·t(3),
+  R(q*)(9)] (:func:`frame_params`), then the z window [j_lo, j_hi] and
+  the slab's x offset in slots 17-19 (:func:`pack_row`, the window from
+  :func:`z_window`), zeros after; :func:`check_operands` checks what a
+  launcher takes, :func:`window_points` counts a window's points.
+* :func:`_sweep_setup` and :func:`_zval` are the kernels' lattice.
 * :func:`_recip`, :func:`_body_origin`, :func:`_field_terms_lin`,
   :func:`_occupancy`, :func:`_sep_grad_step` and :func:`_sep_finish` are
   the chain of K1, K2, K4 and K5: per-sample reciprocals, body
@@ -21,7 +28,14 @@ from typing import NamedTuple
 
 import torch
 
+from sqtpu_torch.ops import geometry
+
 N_PAR = 17  # frame scalars: a(3), e(2), t_rot(3), R(9)
+PAR_STRIDE = 24  # floats per sample in the packed rows
+# slots 17..19 carry the z window [j_lo, j_hi] as float lattice indices and
+# the x-column offset of the plane slab; 20..23 are zero
+SLOT_JLO, SLOT_JHI, SLOT_X0 = 17, 18, 19
+MAX_BATCH = 65535  # the kernels' grid.y
 # The gradient's exponentials are assembled in log space with the exponent
 # clamped: far outside the occupancy shell they overflow while their
 # cotangent is exactly 0, and inf·0 would give NaN.
@@ -35,6 +49,130 @@ EXPCLAMP = 1.0686475e13  # exp(CLAMP) in float32
 EXP_OVERFLOW = {torch.float32: 88.73, torch.float64: 709.79}
 FINITE_LOG = {torch.float32: 87.0, torch.float64: 707.0}
 CULL_MARGIN = 1.05
+
+
+# ---------------------------------------------------------------------------
+# The rows (sqtpu/ops/kernels/implicit.py:258-270, explicit.py:290-363)
+# ---------------------------------------------------------------------------
+
+def frame_params(p: torch.Tensor) -> torch.Tensor:
+    """Clamp a (B, 12) batch and expand it to the (B, 24) frame layout
+    [a(3), e(2), R(q*)·t(3), R(q*)(9), 0(7)], differentiably. Keeps a
+    float64 input in float64 (the CUDA path takes float32)."""
+    pp = geometry.clamp_params(p)
+    a, e, tr, rot = geometry.rotated_frame(pp)
+    return torch.cat([a, e, tr, rot.reshape(-1, 9),
+                      pp.new_zeros((pp.shape[0], PAR_STRIDE - N_PAR))],
+                     dim=-1)
+
+
+@torch.no_grad()
+def z_window(params, last: int, margin: float):
+    """Per-sample lattice window [j_lo, j_hi] on the axis z_j = j/last
+    covering the union of the clamped superquadrics' z-support boxes (one
+    (B, 12) batch of ``params`` each) ± ``margin``, as float indices in
+    their dtype with no gradient."""
+    lo = hi = None
+    for p in params:
+        pp = geometry.clamp_params(p)
+        a, _, _, rot = geometry.rotated_frame(pp)
+        zlo, zhi, _ = geometry.z_support_window(
+            a, rot, geometry.split_params(pp).t, 2)
+        lo = zlo if lo is None else torch.minimum(lo, zlo)
+        hi = zhi if hi is None else torch.maximum(hi, zhi)
+    zlo = torch.clamp(lo - margin, 0.0, 1.0)
+    zhi = torch.clamp(hi + margin, 0.0, 1.0)
+    jlo = torch.ceil(zlo * last)
+    jhi = torch.maximum(torch.floor(zhi * last), jlo)
+    return jlo, jhi
+
+
+def pack_row(p: torch.Tensor, last: int, window=None,
+             x0: int = 0) -> torch.Tensor:
+    """(B, 12) params -> the kernels' (B, 24) row: :func:`frame_params`
+    with the z window ``(j_lo, j_hi)`` (None: the full sweep [0, last])
+    and the slab's x offset in slots 17-19. Differentiable in the frame
+    scalars."""
+    par = frame_params(p)
+    par[:, SLOT_JLO], par[:, SLOT_JHI] = ((0.0, float(last)) if window is None
+                                          else window)
+    par[:, SLOT_X0] = float(x0)
+    return par
+
+
+def check_operands(n: int, n_cols: int, rows: dict, planes=(),
+                   vectors=()) -> None:
+    """Raise unless each of ``rows`` (name -> tensor) is (B, 24), each of
+    ``planes`` (B, n·n_cols) and each of ``vectors`` (B,), all float32,
+    contiguous and on the first row's CUDA device, with B and n within
+    what the kernels take: what a launcher takes."""
+    device = next(iter(rows.values())).device
+    b = next(iter(rows.values())).shape[0]
+    if not 0 < b <= MAX_BATCH:
+        raise ValueError(f"batch {b} outside the kernels' grid "
+                         f"(1..{MAX_BATCH})")
+    if n < 2 or not 0 < n_cols <= n:
+        raise ValueError(f"need n >= 2 and 0 < n_cols <= n, got {n}, "
+                         f"{n_cols}")
+    want = [(name, t, (b, PAR_STRIDE)) for name, t in rows.items()]
+    want += [("plane", t, (b, n * n_cols)) for t in planes]
+    want += [("cotangent", t, (b,)) for t in vectors]
+    for name, t, shape in want:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, the "
+                             f"kernel takes {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(f"{name} must be on the params' CUDA device, "
+                             f"got {t.device}")
+
+
+def window_points(par: torch.Tensor, columns: int) -> int:
+    """In-window (x, y, z) points for these packed rows, ``columns``
+    lattice columns a sample: Σ_b (j_hi − j_lo + 1) · columns."""
+    span = par[:, SLOT_JHI].to(torch.int64) - par[:, SLOT_JLO].to(
+        torch.int64) + 1
+    return int(span.sum()) * columns
+
+
+# ---------------------------------------------------------------------------
+# The lattice and the field chain of the emulations
+# ---------------------------------------------------------------------------
+
+class _Sweep(NamedTuple):
+    pp: list          # 17 frame scalars, each (B, 1)
+    X: torch.Tensor   # (B, P) plane coordinates
+    Y: torch.Tensor
+    lo: torch.Tensor  # (B, 1) window bounds, int64
+    hi: torch.Tensor
+    inv: float
+
+
+def _sweep_setup(par: torch.Tensor, n: int, n_cols: int) -> _Sweep:
+    """Coordinates of the (x_local·n + y) plane as the kernels compute
+    them: lattice index 0 maps to 1e-4, any other k to k/(n−1); x is
+    offset by slot 19."""
+    dev = par.device
+    idx = torch.arange(n * n_cols, device=dev)
+    x0 = par[:, SLOT_X0].to(torch.int64)[:, None]
+    xi = (idx // n)[None, :] + x0
+    yi = (idx % n)[None, :].expand_as(xi)
+    inv = 1.0 / (n - 1)
+    X = torch.where(xi == 0, 1e-4, xi.to(par.dtype) * inv)
+    Y = torch.where(yi == 0, 1e-4, yi.to(par.dtype) * inv)
+    pp = [par[:, i:i + 1] for i in range(N_PAR)]
+    lo = par[:, SLOT_JLO].to(torch.int64)[:, None]
+    hi = par[:, SLOT_JHI].to(torch.int64)[:, None]
+    return _Sweep(pp, X, Y, lo, hi, inv)
+
+
+def _zval(j: int, inv: float, like: torch.Tensor) -> torch.Tensor:
+    if j == 0:
+        return like.new_tensor(1e-4)
+    return like.new_tensor(float(j)) * inv
 
 
 def _ex(logterm: torch.Tensor) -> torch.Tensor:

@@ -36,6 +36,7 @@ from typing import Sequence
 import torch
 
 from sqtpu_torch.ops import geometry
+from sqtpu_torch.ops.kernels import _build
 
 PAR_STRIDE = 24     # values per field and sample in the packed rows
 MAX_FIELDS = 8
@@ -43,36 +44,6 @@ MAX_PAIRS = 8
 MAX_N = 2048
 # The range of exponents the cull's proof covers (csrc/voxel_iou.cu).
 E_MIN, E_MAX = 1e-3, 100.0
-
-# Launches of the CUDA kernel since the last reset_launches(); the wrapper
-# adds one where it launches and nowhere else.
-launches = 0
-
-
-def reset_launches() -> None:
-    global launches
-    launches = 0
-
-
-def _lib() -> ctypes.CDLL:
-    from sqtpu_torch.ops.kernels import _build
-
-    return bind(_build.load("voxel_iou"))
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Type the C entries of a library built from ``csrc/voxel_iou.cu``
-    (this package's, or another checkout's for ``kernel_ab.py``); returns
-    it."""
-    if not getattr(lib, "_sqtpu_typed", False):
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.sqtpu_voxel_iou.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
-                                        i32, i32, ptr]
-        lib.sqtpu_voxel_iou.restype = i32
-        lib.sqtpu_error_string.argtypes = [i32]
-        lib.sqtpu_error_string.restype = ctypes.c_char_p
-        lib._sqtpu_typed = True
-    return lib
 
 
 def row_dtype(fields: Sequence[torch.Tensor]) -> torch.dtype:
@@ -93,7 +64,7 @@ def pack_fields(fields: Sequence[torch.Tensor]) -> torch.Tensor:
     (0-2), e1 (3), e2 (4), 1/e2 (5), e2/e1 (6), 1/e1 (7), R(q*)·t (8-10),
     R(q*) (11-19, row-major), 1 at 20 for a bfloat16 field, zero padding
     (21-23). Each is the plain path's expression
-    (``geometry._rotated_frame``, ``geometry._power_chain``) in the field's
+    (``geometry.rotated_frame``, ``geometry._power_chain``) in the field's
     own dtype, so every constant has its bits; the fields of one dtype
     are packed at once."""
     fields = list(fields)
@@ -104,7 +75,7 @@ def pack_fields(fields: Sequence[torch.Tensor]) -> torch.Tensor:
     for dt in groups:
         idx = [i for i, p in enumerate(fields) if p.dtype == dt]
         p = torch.stack([fields[i] for i in idx], dim=1).reshape(-1, 12)
-        a, e, tr, rot = geometry._rotated_frame(p)
+        a, e, tr, rot = geometry.rotated_frame(p)
         e1, e2 = e[:, 0], e[:, 1]
         flag = p.new_full((p.shape[0], 1), float(dt == torch.bfloat16))
         packed = torch.cat([
@@ -168,7 +139,6 @@ def voxel_iou_cuda(fields: Sequence[torch.Tensor], pairs,
     """K7: (B, P, 2) int64 [intersection, union] voxel counts of each pair
     (f, g) of ``pairs`` (indices into ``fields``, each (B, 12)) on the
     ``render_size``³ ``"iou"`` lattice. Raises unless it launched."""
-    global launches
     fields = list(fields)
     if not 0 < len(fields) <= MAX_FIELDS:
         raise ValueError(f"{len(fields)} fields outside the kernel's "
@@ -191,7 +161,7 @@ def voxel_iou_cuda(fields: Sequence[torch.Tensor], pairs,
                          f"1..{MAX_N}")
     pair_t = _pair_table(pairs, first.device)
     out = _launch(pack_fields(fields), axes(fields, render_size), pair_t)
-    launches += 1
+    _build.count("K7")
     return out
 
 
@@ -215,16 +185,11 @@ def _launch(par: torch.Tensor, ax: torch.Tensor, pairs: torch.Tensor,
                            "layout")
     out = torch.zeros((b, pairs.shape[0], 2), dtype=torch.int64,
                       device=par.device)
-    lib = _lib() if lib is None else lib
-    with torch.cuda.device(par.device):
-        stream = torch.cuda.current_stream(par.device).cuda_stream
-        err = lib.sqtpu_voxel_iou(par.data_ptr(), ax.data_ptr(),
-                                  pairs.data_ptr(), out.data_ptr(), b, f,
-                                  pairs.shape[0], n,
-                                  int(par.dtype == torch.float64), stream)
-    if err != 0:
-        raise RuntimeError("voxel IoU kernel launch failed: "
-                           + lib.sqtpu_error_string(err).decode())
+    lib = _build.library("voxel_iou") if lib is None else lib
+    _build.launch(lib, "sqtpu_voxel_iou", par.device, par.data_ptr(),
+                  ax.data_ptr(), pairs.data_ptr(), out.data_ptr(), b, f,
+                  pairs.shape[0], n, int(par.dtype == torch.float64),
+                  what="voxel IoU")
     return out
 
 

@@ -1,12 +1,13 @@
 """Evaluation metrics: voxel IoU, the IoU tuple and rotation errors.
 
 Counterpart of ``sqtpu/ops/metrics.py`` (:25-138). The IoU applies no
-parameter clamp and no zero guard, as in the reference. On CPU tensors
-the counts come from plain torch occupancy grids; CUDA tensors go to the
-voxel IoU kernel K7 (:mod:`sqtpu_torch.ops.kernels.voxel_iou`), which
-launches or raises and gives the same counts with no grid in memory.
-``iou_full`` is a span, and so are the occupancy grids or the K7 launch
-(``metrics.voxels``; :mod:`sqtpu_torch.utils.profiling`).
+parameter clamp and no zero guard, as in the reference. Every count comes
+from :func:`pair_counts`: on CPU tensors from plain torch occupancy grids;
+CUDA tensors go to the voxel IoU kernel K7
+(:mod:`sqtpu_torch.ops.kernels.voxel_iou`), which launches or raises and
+gives the same counts with no grid in memory. ``iou_full`` is a span, and
+so are the occupancy grids or the K7 launch (``metrics.voxels``;
+:mod:`sqtpu_torch.utils.profiling`).
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ from sqtpu_torch.ops.kernels import voxel_iou
 from sqtpu_torch.ops.losses import _flip_orbit, param_gauge_orbit
 from sqtpu_torch.utils.profiling import span
 
-# Samples whose voxel grids are built at once: bounds the working set to
-# a few (chunk, N, N, N) fp32 grids (0.5 GB each at N = 128).
+# Samples whose occupancy grids the plain path (the CPU's, and K7's
+# yardstick on the card) builds at once: a field's float32 grid is then
+# 16·N³·4 bytes, 17 MB at N = 64 and 134 MB at N = 128, beside a few
+# temporaries of its power chain. K7 builds no grid.
 _IOU_CHUNK = 16
 # iou_full's three pairs of its five fields (full_fields): rot-isolated,
 # full, gauge-aligned rot-isolated.
@@ -38,19 +41,37 @@ def _binary_voxels(p: torch.Tensor, render_size: int) -> torch.Tensor:
         return geometry.field_grid(ax, ax, ax, p, guard=False) <= 1.0
 
 
-def _k7_counts(fields, pairs, render_size: int) -> torch.Tensor:
-    """K7's (B, P, 2) counts; the span ``metrics.voxels``."""
+def pair_counts(fields, pairs, render_size: int) -> torch.Tensor:
+    """(B, P, 2) int64 [intersection, union] voxel counts of each pair
+    (f, g) of ``pairs`` (indices into ``fields``, each (B, 12)): plain
+    grids on the CPU (:func:`plain_pair_counts`), one K7 launch on the
+    card, the span ``metrics.voxels``."""
+    if fields[0].device.type == "cpu":
+        return plain_pair_counts(fields, pairs, render_size)
     with span("metrics.voxels"):
         return voxel_iou.voxel_iou_cuda(fields, pairs, render_size)
+
+
+def plain_pair_counts(fields, pairs, render_size: int) -> torch.Tensor:
+    """:func:`pair_counts` from plain occupancy grids on any device: each
+    field's grid built once per chunk of samples."""
+    out = []
+    for lo in range(0, fields[0].shape[0], _IOU_CHUNK):
+        grids = {f: _binary_voxels(fields[f][lo:lo + _IOU_CHUNK],
+                                   render_size)
+                 for f in dict.fromkeys(f for pair in pairs for f in pair)}
+        out.append(torch.stack([torch.stack([
+            (grids[f] & grids[g]).sum(dim=(1, 2, 3)),
+            (grids[f] | grids[g]).sum(dim=(1, 2, 3))], dim=-1)
+            for f, g in pairs], dim=1))
+    return torch.cat(out)
 
 
 def iou_counts(true_p: torch.Tensor, pred_p: torch.Tensor,
                render_size: int = 64):
     """Per-sample voxel counts of the intersection and the union, (B,)
     int64 each: plain grids on the CPU, K7 on the card."""
-    if true_p.device.type == "cpu":
-        return plain_iou_counts(true_p, pred_p, render_size)
-    counts = _k7_counts((true_p, pred_p), ((0, 1),), render_size)
+    counts = pair_counts((true_p, pred_p), ((0, 1),), render_size)
     return counts[:, 0, 0], counts[:, 0, 1]
 
 
@@ -58,13 +79,8 @@ def plain_iou_counts(true_p: torch.Tensor, pred_p: torch.Tensor,
                      render_size: int = 64):
     """:func:`iou_counts` from plain occupancy grids on any device: the
     CPU's path, and K7's yardstick on the card."""
-    inter, union = [], []
-    for lo in range(0, true_p.shape[0], _IOU_CHUNK):
-        a = _binary_voxels(true_p[lo:lo + _IOU_CHUNK], render_size)
-        b = _binary_voxels(pred_p[lo:lo + _IOU_CHUNK], render_size)
-        inter.append((a & b).sum(dim=(1, 2, 3)))
-        union.append((a | b).sum(dim=(1, 2, 3)))
-    return torch.cat(inter), torch.cat(union)
+    counts = plain_pair_counts((true_p, pred_p), ((0, 1),), render_size)
+    return counts[:, 0, 0], counts[:, 0, 1]
 
 
 def iou(true_p: torch.Tensor, pred_p: torch.Tensor, render_size: int = 64,
@@ -129,19 +145,14 @@ def iou_full(true_p: torch.Tensor, pred_p: torch.Tensor,
     """(B, 7) per sample: [rot-isolated IoU, full IoU, angle, sym-angle,
     gauge-angle, gauge rot-IoU, gauge-swapped flag]; see the JAX
     package's ``iou_full`` for what each column isolates. The span
-    ``metrics.iou_full``; its occupancy grids, or on the card its one K7
-    launch for the three IoUs, ``metrics.voxels``."""
+    ``metrics.iou_full``; its five fields' occupancy grids, or on the card
+    its one K7 launch for the three IoUs, ``metrics.voxels``."""
     with span("metrics.iou_full"):
         fields, swapped = full_fields(true_p, pred_p)
-        if true_p.device.type == "cpu":
-            iou_rot, iou_all, iou_rot_g = (
-                iou(fields[f], fields[g], render_size, reduce=False)
-                for f, g in FULL_PAIRS)
-        else:   # one K7 launch, the truth's field evaluated once
-            counts = _k7_counts(fields, FULL_PAIRS, render_size)
-            ious = counts[..., 0].to(true_p.dtype) / counts[..., 1].to(
-                true_p.dtype)
-            iou_rot, iou_all, iou_rot_g = ious.unbind(-1)
+        counts = pair_counts(fields, FULL_PAIRS, render_size)
+        ious = counts[..., 0].to(true_p.dtype) / counts[..., 1].to(
+            true_p.dtype)
+        iou_rot, iou_all, iou_rot_g = ious.unbind(-1)
         q_t, q_p = true_p[..., 8:12], pred_p[..., 8:12]
         ang = angle_error(q_t, q_p)
         ang_sym = angle_error_sym(q_t, q_p)

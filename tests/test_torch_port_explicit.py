@@ -26,6 +26,7 @@ from sqtpu.ops.kernels import explicit as jexplicit
 from sqtpu.ops.kernels import implicit as jimplicit
 from sqtpu_torch.ops import losses as tlosses
 from sqtpu_torch.ops.kernels import _build, explicit_loss_auto
+from sqtpu_torch.ops.kernels import launch_counts, reset_launches
 from sqtpu_torch.ops.kernels import explicit as KE
 
 from test_torch_port_ops import _few_torch_threads, random_params  # noqa: F401
@@ -202,13 +203,13 @@ def test_loss_only_sweep_where_nothing_is_differentiated():
 
 def test_cpu_tensor_goes_to_the_plain_loss():
     true, pred = (torch.tensor(x) for x in _batch(77))
-    KE.reset_launches()
+    reset_launches()
     got = explicit_loss_auto(true, pred, 8, sharp=20.0)
     want = tlosses.explicit_loss(true, pred, 8, sharp=20.0)
     assert torch.equal(got, want)
     per = explicit_loss_auto(true, pred, 8, reduce=False, z_window=False)
     assert torch.equal(per, tlosses.explicit_loss(true, pred, 8, False))
-    assert (KE.fused_launches, KE.fwd_launches) == (0, 0)
+    assert not any(launch_counts().values())
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "strided", "cpu", "size",
@@ -229,12 +230,12 @@ def test_kernels_reject_bad_operands(bad):
         n = 1
     elif bad == "batch":
         par_t, par_p = par_t[:0], par_p[:0]
-    KE.reset_launches()
+    reset_launches()
     with pytest.raises(err):
         KE.cuda_fwd(par_t, par_p, n, 5.0)
     with pytest.raises(err):
         KE.cuda_fused(par_t, par_p, n, 5.0)
-    assert (KE.fused_launches, KE.fwd_launches) == (0, 0)
+    assert not any(launch_counts().values())
 
 
 def test_wrapper_rejects_bad_input():

@@ -65,12 +65,21 @@ import torch
 from sqtpu_torch.ops import losses as tlosses
 from sqtpu_torch.ops.image import nearest_resize
 from sqtpu_torch.ops import render as trender
+from sqtpu_torch.ops.kernels import _build
 from sqtpu_torch.ops.kernels import explicit as KE
 from sqtpu_torch.ops.kernels import hardrender
 from sqtpu_torch.ops.kernels import implicit as K
 from sqtpu_torch.ops.kernels import (
-    explicit_loss_auto, implicit_loss_auto, render_hard_auto,
+    explicit_loss_auto, implicit_loss_auto, launch_counts, render_hard_auto,
+    reset_launches,
 )
+
+
+def launched(*kernels) -> tuple:
+    """Launches of these kernels (ids of ``launch_counts``) since the last
+    reset."""
+    got = launch_counts()
+    return tuple(got[k] for k in kernels)
 
 
 @pytest.fixture
@@ -173,10 +182,10 @@ def levels_off(a: np.ndarray, b: np.ndarray) -> float:
 def test_kernel_matches_plain_on_card(cuda_device, n_sweep, n_bisect):
     p = torch.from_numpy(_params(np.random.default_rng(23), 16)).to(
         cuda_device)
-    before = hardrender.launches
+    before = launch_counts()["K3"]
     got = render_hard_auto(p, 256, n_sweep=n_sweep, n_bisect=n_bisect)
     torch.cuda.synchronize()
-    assert hardrender.launches == before + 1
+    assert launch_counts()["K3"] == before + 1
     want = trender.render_depth_hard_batch(p, 256, n_bisect=n_bisect,
                                            quantize=True, n_sweep=n_sweep)
     assert got.shape == (16, 256, 256) and got.dtype == torch.float32
@@ -220,10 +229,10 @@ def _plain(img, p, n, tau, sharp, z_window=True):
 @pytest.mark.parametrize("z_window", [True, False])
 def test_kernels_match_emulation_and_plain_on_card(cuda_device, z_window):
     p, img = _batch(70, 8)
-    K.reset_launches()
+    reset_launches()
     got = _torch_value_and_grads(K.implicit_loss_cuda, p, img, 64, z_window,
                                  cuda_device)
-    assert (K.fwd_launches, K.bwd_launches) == (1, 1)
+    assert launched("K1", "K2") == (1, 1)
     again = _torch_value_and_grads(K.implicit_loss_cuda, p, img, 64,
                                    z_window, cuda_device)
     for a, b in zip(got, again):  # no atomics: identical run to run
@@ -257,7 +266,7 @@ def test_slab_kernel_adds_up_to_the_plane_on_card(cuda_device, n_cols,
     tp = torch.tensor(p, device=cuda_device)
     small = nearest_resize(torch.tensor(img, device=cuda_device), (n, n))
     g = torch.linspace(0.5, 1.5, 8, device=cuda_device)
-    K.reset_launches()
+    reset_launches()
 
     def plane(ts, pp):  # K1/K2 on the whole plane
         return K._ImplicitCore.apply(
@@ -265,7 +274,7 @@ def test_slab_kernel_adds_up_to_the_plane_on_card(cuda_device, n_cols,
             260.0, K.CUDA)
 
     full = _sums_value_and_grads(plane, small, tp, g)
-    assert (K.fwd_launches, K.bwd_launches) == (1, 1)
+    assert launched("K1", "K2") == (1, 1)
     parts = []
     for x0 in range(0, n, n_cols):
         cols = small[:, :, x0:x0 + n_cols].contiguous()
@@ -295,9 +304,8 @@ def test_slab_kernel_adds_up_to_the_plane_on_card(cuda_device, n_cols,
             torch.testing.assert_close(got[2], ref[2], rtol=1e-4, atol=0)
         parts.append(got)
     slabs = -(-n // n_cols)
-    assert (K.slab_fwd_launches, K.slab_bwd_launches) == (2 * slabs,
-                                                          2 * slabs)
-    assert (K.fwd_launches, K.bwd_launches) == (1, 1)
+    assert launched("K6", "K6_bwd") == (2 * slabs, 2 * slabs)
+    assert launched("K1", "K2") == (1, 1)
     torch.testing.assert_close(sum(s for s, _, _ in parts), full[0],
                                rtol=1e-5, atol=0)
     full_grad = full[1].cpu().numpy()
@@ -313,10 +321,10 @@ def test_dispatch_on_card(cuda_device):
     p, img = _batch(71, 4)
     tp = torch.tensor(p, device=cuda_device)
     ti = torch.tensor(img, device=cuda_device)
-    K.reset_launches()
+    reset_launches()
     with torch.no_grad():
         implicit_loss_auto(ti, tp, 64)
-    assert (K.fwd_launches, K.bwd_launches) == (1, 0)
+    assert launched("K1", "K2") == (1, 0)
     with pytest.raises(TypeError):
         implicit_loss_auto(ti.double(), tp.double(), 64)
     with pytest.raises(ValueError):
@@ -328,7 +336,7 @@ def test_refused_launch_raises(cuda_device, monkeypatch):
     """A launcher that reports a CUDA error (here a stand-in returning
     cudaErrorInvalidConfiguration) makes the wrapper raise and count
     nothing."""
-    lib = K._lib()
+    lib = _build.library("implicit")
 
     class Refusing:
         sqtpu_implicit_blocks = lib.sqtpu_implicit_blocks
@@ -338,14 +346,14 @@ def test_refused_launch_raises(cuda_device, monkeypatch):
         def sqtpu_implicit_fwd(*args):
             return 9
 
-    monkeypatch.setattr(K, "_lib", lambda: Refusing)
+    monkeypatch.setattr(_build, "library", lambda name: Refusing)
     p, img = _batch(72, 2)
     par = K.pack_params(torch.tensor(p, device=cuda_device), 16)
     img_xy = K.image_plane(torch.tensor(img, device=cuda_device), 16)
-    K.reset_launches()
+    reset_launches()
     with pytest.raises(RuntimeError, match="launch failed"):
         K.cuda_fwd(img_xy, par, 16, 16, 1.5, 260.0)
-    assert K.fwd_launches == 0
+    assert launch_counts()["K1"] == 0
 
 
 @pytest.mark.gpu
@@ -407,10 +415,10 @@ def test_explicit_kernels_match_emulation_and_plain_on_card(cuda_device,
                                                             z_window):
     true, pred = _explicit_batch(80, 8)
     kw = {"z_window": z_window, "sharp": 20.0}
-    KE.reset_launches()
+    reset_launches()
     got = _explicit_value_and_grad(KE.explicit_loss_cuda, true, pred, 64,
                                    cuda_device, **kw)
-    assert (KE.fused_launches, KE.fwd_launches) == (1, 0)
+    assert launched("K4", "K5") == (1, 0)
     again = _explicit_value_and_grad(KE.explicit_loss_cuda, true, pred, 64,
                                      cuda_device, **kw)
     for a, b in zip(got, again):  # no atomics: identical run to run
@@ -419,7 +427,7 @@ def test_explicit_kernels_match_emulation_and_plain_on_card(cuda_device,
         only = KE.explicit_loss_cuda(torch.tensor(true, device=cuda_device),
                                      torch.tensor(pred, device=cuda_device),
                                      64, **kw).item()
-    assert (KE.fused_launches, KE.fwd_launches) == (2, 1)
+    assert launched("K4", "K5") == (2, 1)
     assert only == pytest.approx(got[0], rel=1e-6)
     emu = _explicit_value_and_grad(KE.explicit_loss_emulated, true, pred,
                                    64, cuda_device, **kw)
@@ -437,11 +445,11 @@ def test_explicit_kernels_match_emulation_and_plain_on_card(cuda_device,
 def test_explicit_dispatch_on_card(cuda_device):
     true, pred = (torch.tensor(x, device=cuda_device)
                   for x in _explicit_batch(81, 4))
-    KE.reset_launches()
+    reset_launches()
     with torch.no_grad():
         explicit_loss_auto(true, pred, 32)
     explicit_loss_auto(true, pred, 32)  # pred needs no gradient: K5 too
-    assert (KE.fused_launches, KE.fwd_launches) == (0, 2)
+    assert launched("K4", "K5") == (0, 2)
     with pytest.raises(TypeError):
         explicit_loss_auto(true.double(), pred.double(), 32)
     with pytest.raises(ValueError):
@@ -453,7 +461,7 @@ def test_explicit_refused_launch_raises(cuda_device, monkeypatch):
     """A launcher that reports a CUDA error (here a stand-in returning
     cudaErrorInvalidConfiguration) makes the wrapper raise and count
     nothing."""
-    lib = KE._lib()
+    lib = _build.library("explicit")
 
     class Refusing:
         sqtpu_explicit_blocks = lib.sqtpu_explicit_blocks
@@ -464,14 +472,14 @@ def test_explicit_refused_launch_raises(cuda_device, monkeypatch):
         def sqtpu_explicit_fused(*args):
             return 9
 
-    monkeypatch.setattr(KE, "_lib", lambda: Refusing)
+    monkeypatch.setattr(_build, "library", lambda name: Refusing)
     true, pred = (torch.tensor(x, device=cuda_device)
                   for x in _explicit_batch(82, 2))
     par_t, par_p = KE.pack_params(true, pred, 16)
-    KE.reset_launches()
+    reset_launches()
     with pytest.raises(RuntimeError, match="launch failed"):
         KE.cuda_fused(par_t, par_p, 16, 5.0)
-    assert KE.fused_launches == 0
+    assert launch_counts()["K4"] == 0
 
 
 # ---- the redesigned K4 and K3 ------------------------------------------------
@@ -515,11 +523,11 @@ def test_redesigned_k5_is_k4s_sum_at_the_c4c_shape_on_card(cuda_device):
     n, sharp = 128, 20.0
     par_t, par_p = KE.pack_params(true, pred, n, True,
                                   KE.default_margin(sharp))
-    KE.reset_launches()
+    reset_launches()
     k5 = KE.cuda_fwd(par_t, par_p, n, sharp)
     again = KE.cuda_fwd(par_t, par_p, n, sharp)
     k4, _ = KE.cuda_fused(par_t, par_p, n, sharp)
-    assert (KE.fused_launches, KE.fwd_launches) == (1, 2)
+    assert launched("K4", "K5") == (1, 2)
     assert torch.equal(k5, again)
     assert torch.equal(k5, k4)
     emu = KE.emulate_fwd(par_t, par_p, n, sharp)
@@ -683,10 +691,9 @@ def test_refine_gd_through_the_kernels_on_card(cuda_device):
             scale=0.02, size=(16, 12)).astype(np.float32)).to(cuda_device)
         p0 = torch.cat([p0[:, :8], torch.nn.functional.normalize(
             p0[:, 8:], dim=-1)], -1)
-        before = (K.fwd_launches, K.bwd_launches)
+        before = launched("K1", "K2")
         got = fit.refine_params(imgs, p0, "gd", 10, 64)
-        assert (K.fwd_launches, K.bwd_launches) == (before[0] + 10,
-                                                    before[1] + 10)
+        assert launched("K1", "K2") == (before[0] + 10, before[1] + 10)
 
         def held(q):
             loss = 16 * K.implicit_loss_cuda(imgs, q, 64, z_window=False)
@@ -794,9 +801,9 @@ def test_bf16_step_on_card(cuda_device):
             BF16_STEP_SEED).to(cuda_device)
         cfg = TrainConfig(batch_size=8, dtype=dtype)
         state = create_train_state(model, cfg)
-        K.reset_launches()
+        reset_launches()
         loss = float(make_train_step(state, cfg)(imgs, labels))
-        assert (K.fwd_launches, K.bwd_launches) == (1, 1)
+        assert launched("K1", "K2") == (1, 1)
         assert all(p.dtype == p.grad.dtype == torch.float32
                    for p in model.parameters())
         with torch.no_grad():
@@ -831,12 +838,12 @@ def test_bf16_keras_net_trains_through_k4_k5_on_card(cuda_device):
                       render_size=32, grad_clip=1.0, dtype="bfloat16")
     model = numpy_weights(build_model(cfg.model, dtype=torch.bfloat16), 88)
     state = create_train_state(model.to(cuda_device), cfg)
-    KE.reset_launches()
+    reset_launches()
     loss = make_train_step(state, cfg)(imgs, labels)
-    assert (KE.fused_launches, KE.fwd_launches) == (1, 0)
+    assert launched("K4", "K5") == (1, 0)
     assert torch.isfinite(loss)
     val, _, _, pred = make_eval_step(state, cfg)(imgs, labels)
-    assert (KE.fused_launches, KE.fwd_launches) == (1, 1)
+    assert launched("K4", "K5") == (1, 1)
     assert pred.dtype == torch.bfloat16
     plain = tlosses.explicit_loss(labels, pred.float(), 32, sharp=5.0)
     assert float(val) == pytest.approx(float(plain), rel=1e-3)
@@ -873,11 +880,10 @@ def test_slerp_sweep_kernels_on_card(cuda_device, loss):
     base = torch.from_numpy(_params(rng, 1)[0]).to(cuda_device)
     q0 = torch.tensor([0.0, 0.0, 0.0, 1.0], device=cuda_device)
     q1 = torch.from_numpy(_params(rng, 1)[0, 8:]).to(cuda_device)
-    KE.reset_launches()
-    K.reset_launches()
+    reset_launches()
     _, ls, _ = viz.sweep_numbers(base, q0, q1, loss, 200, 32)
     torch.cuda.synchronize()
-    assert (KE.fwd_launches, K.fwd_launches) == (
+    assert launched("K5", "K1") == (
         (1, 0) if loss == "explicit" else (0, 1))
     qs = quat.slerp(q0, q1, geometry.make_axis(200, "iou",
                                                device=cuda_device))
@@ -903,10 +909,10 @@ def test_explicit_kernels_at_the_fit_and_probe_settings_on_card(cuda_device,
     sums are K4's bit for bit."""
     true, pred = _explicit_batch(91, b)
     kw = {"z_window": False, "sharp": 5.0}
-    KE.reset_launches()
+    reset_launches()
     got = _explicit_value_and_grad(KE.explicit_loss_cuda, true, pred, 32,
                                    cuda_device, **kw)
-    assert (KE.fused_launches, KE.fwd_launches) == (1, 0)
+    assert launched("K4", "K5") == (1, 0)
     for ref in (_explicit_value_and_grad(KE.explicit_loss_emulated, true,
                                          pred, 32, cuda_device, **kw),
                 _explicit_value_and_grad(
@@ -959,10 +965,10 @@ def test_implicit_kernels_at_the_bench_sp_setting_on_card(cuda_device):
     pred = pred.astype(np.float32)
     k3 = render_hard_auto(torch.tensor(truths, device=cuda_device), 256,
                           n_sweep=48, n_bisect=12).cpu().numpy()
-    K.reset_launches()
+    reset_launches()
     got = _torch_value_and_grads(K.implicit_loss_cuda, pred, k3, 128, True,
                                  cuda_device)
-    assert (K.fwd_launches, K.bwd_launches) == (1, 1)
+    assert launched("K1", "K2") == (1, 1)
     for fn in (K.implicit_loss_emulated, _plain):
         want = _torch_value_and_grads(fn, pred, k3, 128, True, cuda_device)
         assert got[0] == pytest.approx(want[0], rel=1e-5)
@@ -984,10 +990,10 @@ def test_explicit_kernels_at_the_bench_sharp5_settings_on_card(cuda_device,
     K4's bit for bit."""
     true, pred = _explicit_batch(n, 64)
     kw = {"z_window": z_window, "sharp": 5.0}
-    KE.reset_launches()
+    reset_launches()
     got = _explicit_value_and_grad(KE.explicit_loss_cuda, true, pred, n,
                                    cuda_device, **kw)
-    assert (KE.fused_launches, KE.fwd_launches) == (1, 0)
+    assert launched("K4", "K5") == (1, 0)
     emu = _explicit_value_and_grad(KE.explicit_loss_emulated, true, pred,
                                    n, cuda_device, **kw)
     assert got[0] == pytest.approx(emu[0], rel=1e-5)
@@ -1048,7 +1054,6 @@ def test_voxel_iou_dispatch_on_card(cuda_device):
     """CUDA tensors take K7, one launch a call; what it does not take
     raises, never the plain path."""
     from sqtpu_torch.ops import metrics
-    from sqtpu_torch.ops.kernels import launch_counts, reset_launches
     from sqtpu_torch.ops.kernels import voxel_iou as V
 
     truth = torch.tensor(_params(np.random.default_rng(93), 8),

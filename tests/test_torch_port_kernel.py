@@ -17,19 +17,20 @@ import torch
 from sqtpu.ops import geometry as jgeom
 from sqtpu.ops import quaternion as jquat
 from sqtpu_torch.ops import render as trender
-from sqtpu_torch.ops.kernels import _build, hardrender, render_hard_auto
+from sqtpu_torch.ops.kernels import _build, hardrender, launch_counts
+from sqtpu_torch.ops.kernels import render_hard_auto
 
 from test_torch_port_ops import _few_torch_threads, random_params  # noqa: F401
 
 
 def test_cpu_tensor_goes_to_plain_version():
     p = torch.from_numpy(random_params(20, 3, np.float32))
-    before = hardrender.launches
+    before = launch_counts()["K3"]
     got = render_hard_auto(p, 32, n_sweep=48, n_bisect=12, quantize=True)
     want = trender.render_depth_hard_batch(p, 32, n_bisect=12,
                                            quantize=True, n_sweep=48)
     assert torch.equal(got, want)
-    assert hardrender.launches == before  # no kernel launch on the CPU
+    assert launch_counts()["K3"] == before  # no kernel launch on the CPU
 
 
 @pytest.mark.parametrize("bad", ["1d", "width", "int", "size", "sweep",

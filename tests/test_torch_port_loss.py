@@ -27,7 +27,9 @@ from sqtpu_torch.ops import image as timage
 from sqtpu_torch.ops import losses as tlosses
 from sqtpu_torch.ops import render as trender
 from sqtpu_torch.ops.kernels import _build, implicit_loss_auto
+from sqtpu_torch.ops.kernels import launch_counts, reset_launches
 from sqtpu_torch.ops.kernels import implicit as K
+from sqtpu_torch.ops.kernels import sq_field as SF
 
 from test_torch_port_ops import _few_torch_threads, random_params  # noqa: F401
 
@@ -143,8 +145,8 @@ def test_frame_params_and_window_match_jax():
     p = random_params(33, 16, np.float32)
     p[0, 0], p[1, 3] = 1.5, 0.05          # outside the clamp box
     want = np.asarray(jimplicit._frame_params(jnp.asarray(p)))
-    got = K.frame_params(torch.from_numpy(p))
-    assert got.shape == (16, K.PAR_STRIDE) and got.dtype == torch.float32
+    got = SF.frame_params(torch.from_numpy(p))
+    assert got.shape == (16, SF.PAR_STRIDE) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
     for n in (16, 64):
         jlo, jhi = jimplicit.z_window_indices(jnp.asarray(p), n)
@@ -159,16 +161,16 @@ def test_pack_params_slots(z_window):
     p = torch.from_numpy(random_params(34, 4, np.float32))
     par = K.pack_params(p, 32, z_window, x0=5)
     assert par.shape == (4, 24) and par.is_contiguous()
-    torch.testing.assert_close(par[:, :17], K.frame_params(p)[:, :17],
+    torch.testing.assert_close(par[:, :17], SF.frame_params(p)[:, :17],
                                rtol=0, atol=0)
     if z_window:
         lo, hi = K.z_window_indices(p, 32)
-        assert torch.equal(par[:, K.SLOT_JLO], lo)
-        assert torch.equal(par[:, K.SLOT_JHI], hi)
+        assert torch.equal(par[:, SF.SLOT_JLO], lo)
+        assert torch.equal(par[:, SF.SLOT_JHI], hi)
     else:
-        assert (par[:, K.SLOT_JLO] == 0).all()
-        assert (par[:, K.SLOT_JHI] == 31).all()
-    assert (par[:, K.SLOT_X0] == 5).all() and (par[:, 20:] == 0).all()
+        assert (par[:, SF.SLOT_JLO] == 0).all()
+        assert (par[:, SF.SLOT_JHI] == 31).all()
+    assert (par[:, SF.SLOT_X0] == 5).all() and (par[:, 20:] == 0).all()
 
 
 def test_image_plane_matches_jax_relayout():
@@ -241,13 +243,13 @@ def test_emulation_slab_sums_add_up_to_the_plane():
 def test_cpu_tensor_goes_to_plain_loss():
     p = torch.from_numpy(random_params(39, 3, np.float32))
     img = torch.from_numpy(_img(39, 3, 32, np.float32))
-    K.reset_launches()
+    reset_launches()
     got = implicit_loss_auto(img, p, 16, 1.5, 260.0)
     assert torch.equal(got, tlosses.implicit_loss(img, p, 16, 1.5, 260.0))
     # float64 on the CPU is the plain loss too; only the card needs float32
     got64 = implicit_loss_auto(img.double(), p.double(), 16)
     assert got64.dtype == torch.float64
-    assert K.fwd_launches == 0 and K.bwd_launches == 0
+    assert not any(launch_counts().values())
 
 
 @pytest.mark.parametrize("bad", ["1d", "width", "batch", "channels", "size"])
@@ -294,7 +296,7 @@ def test_kernel_wrapper_checks_operands(bad):
     with pytest.raises(err):
         K.cuda_bwd(img_xy, par, img_xy, torch.zeros(par.shape[0]), n, n,
                    1.5, 260.0)
-    assert K.fwd_launches == 0 and K.bwd_launches == 0
+    assert not any(launch_counts().values())
 
 
 def test_source_is_plain_c_and_names_the_tpu_kernels():

@@ -154,7 +154,7 @@ def test_field_grid_matches_jax(p64, guard):
 
 
 def test_rotated_frame_and_z_support_window(p64):
-    a, e, tr, rot = tgeom._rotated_frame(torch.from_numpy(p64))
+    a, e, tr, rot = tgeom.rotated_frame(torch.from_numpy(p64))
     ja, je, jtr, jrot = jax.vmap(jgeom._rotated_frame)(jnp.asarray(p64))
     close(tr, jtr)
     close(rot, jrot)

@@ -43,6 +43,7 @@ from sqtpu_torch.ops import losses as tlosses
 from sqtpu_torch.ops.image import nearest_resize
 from sqtpu_torch.ops.kernels import implicit as K
 from sqtpu_torch.ops.kernels import implicit_sums_slab_auto
+from sqtpu_torch.ops.kernels import launch_counts, reset_launches
 from sqtpu_torch.ops.render import render_depth_soft_batch
 from sqtpu_torch.parallel import dryrun
 from sqtpu_torch.utils.config import TrainConfig, check_slice
@@ -135,11 +136,11 @@ def test_plain_slab_sums_add_up_to_the_plane():
 def test_slab_dispatch_and_checks_on_cpu():
     p = torch.from_numpy(_params(np.random.default_rng(212), 2))
     cols = torch.rand((2, 16, 4), generator=torch.Generator().manual_seed(0))
-    K.reset_launches()
+    reset_launches()
     got = implicit_sums_slab_auto(cols, p, 4, 16)
     torch.testing.assert_close(got, K.implicit_sums_slab_plain(cols, p, 4,
                                                                16))
-    assert (K.slab_fwd_launches, K.slab_bwd_launches) == (0, 0)
+    assert not any(launch_counts().values())
     for bad_x0 in (-1, 13):
         with pytest.raises(ValueError, match="not a slab"):
             implicit_sums_slab_auto(cols, p, bad_x0, 16)

@@ -32,7 +32,7 @@ import torch
 from sqtpu_torch.ops.kernels import _build
 from sqtpu_torch.ops.kernels import explicit as KE
 from sqtpu_torch.ops.kernels import hardrender as H
-from sqtpu_torch.ops.kernels.implicit import _sweep_setup, _zval
+from sqtpu_torch.ops.kernels.sq_field import _sweep_setup, _zval
 from sqtpu_torch.ops.render import render_depth_hard_batch
 
 from test_torch_port_explicit import (

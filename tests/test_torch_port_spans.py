@@ -106,8 +106,8 @@ def test_off_a_span_records_nothing(monkeypatch):
     assert calls == {"event": 2 * spans, "record_function": spans}
     assert totals["train.step"]["calls"] == 1
     assert totals["eval.predict"]["calls"] == 1
-    # 3 IoUs a batch, the truths' and the predictions' grids each
-    assert totals["metrics.voxels"]["calls"] == 6
+    # 3 IoUs a batch of 5 fields, each field's grid built once
+    assert totals["metrics.voxels"]["calls"] == 5
 
 
 def test_under_the_profiler_spans_land_in_the_trace_of_recorded_steps(
