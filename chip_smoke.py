@@ -132,7 +132,13 @@ user calls:
   ("warn")``, the synchronizations of one batch of each eval cell of the
   benchmark and of one ``make_batch`` and step of each train cell, built
   by the benchmark's own drivers, each counted at its call site: an eval
-  batch waits at its five reads alone, ``make_batch`` never.
+  batch waits at its five reads alone, ``make_batch`` never;
+* BatchNorm (phase 41): one step of the ssl cell's trainee at its batch
+  of 512, with the train-mode BatchNorm as the port runs it (one pass
+  over the bf16 input) and in the two-pass formulation it replaced (a
+  float32 copy, a second ``var_mean`` pass): the path counts of a step
+  (20 one-pass calls), its ms, and the device ms a step of each kernel
+  around BatchNorm under the profiler.
 
 One flushed progress line per phase, with the elapsed seconds; no failure
 is caught. The bench prints its JSON lines among them (phases 37 and
@@ -4585,18 +4591,14 @@ def cell_stream_waits(dev) -> dict:
     for name in WAIT_CELLS:
         cell = Cell(name, ROOT)
         driver = cell.driver()
-        config = dict(cell.config)
-        config.update(cell.traffic.get("config", {}))
         if cell.traffic["driver"] == "train":
-            weights = driver.make_weights(
-                config["weights"], driver.weights_seed(WAIT_SEED), dev,
-                cell.root, config.get("weights_sha256", ""))
-            run = driver.PortTrainee(config, weights, WAIT_SEED, dev)
+            run = train_cell_run(cell, dev)
             run.step(*run.draw())
             batch, data = stream_waits(run.draw)
             _, step = stream_waits(lambda: run.step(*batch))
             out[name] = {"make_batch": data, "step": step}
         else:
+            config = cell_config(cell)
             weights = driver.make_weights(
                 config["weights"], WAIT_SEED, dev, cell.root,
                 config.get("weights_sha256", ""))
@@ -4605,9 +4607,27 @@ def cell_stream_waits(dev) -> dict:
                 driver._batch(run)
                 _, sites = stream_waits(lambda: driver._batch(run))
             out[name] = {"batch": sites}
-        del run, weights
+            del weights
+        del run
         torch.cuda.empty_cache()
     return out
+
+
+def cell_config(cell) -> dict:
+    """A benchmark cell's configuration with its traffic's settings."""
+    config = dict(cell.config)
+    config.update(cell.traffic.get("config", {}))
+    return config
+
+
+def train_cell_run(cell, dev):
+    """A train cell's trainee as its driver builds it, from WAIT_SEED."""
+    driver = cell.driver()
+    config = cell_config(cell)
+    weights = driver.make_weights(
+        config["weights"], driver.weights_seed(WAIT_SEED), dev, cell.root,
+        config.get("weights_sha256", ""))
+    return driver.PortTrainee(config, weights, WAIT_SEED, dev)
 
 
 def phase_stream_waits(dev) -> dict:
@@ -4636,6 +4656,89 @@ def phase_stream_waits(dev) -> dict:
             raise RuntimeError(f"{name}: make_batch waits for the stream "
                                f"{waits[name]['make_batch']}")
     return waits
+
+
+# Phase 41: the ssl cell's step, BatchNorm as the port runs it against
+# the two-pass formulation it replaced; the steps profiled a side, after
+# one of warm-up, and the pieces of the names of the kernels around
+# BatchNorm: its own (cuDNN's ``bn_``/``batchnorm``, ATen's
+# ``batch_norm``), the dtype casts and ``var_mean``'s reduction.
+BN_CELL = "ssl-bf16.train-online"
+BN_PROFILED_STEPS = 3
+BN_KERNELS = ("bn_", "batchnorm", "batch_norm", "direct_copy",
+              "bfloat16_copy", "reduce_kernel")
+N_BATCH_NORMS = 20
+
+
+def phase_batchnorm(dev) -> dict:
+    """Phase 41: one step of the ssl cell's trainee at its batch, built
+    by the benchmark's driver, with BatchNorm as the port runs it
+    (``one_pass``) and in the two-pass formulation it replaced
+    (``two_pass``: the input cast to float32, ``F.batch_norm``,
+    ``var_mean`` for the running statistics, the output cast back;
+    tests/test_torch_port_batchnorm.py): each side's BatchNorm path
+    counts a step, its step's ms by CUDA events (median of 5), and under
+    the profiler the device ms a step of each kernel around BatchNorm
+    (BN_KERNELS) and of the whole step. A step counts N_BATCH_NORMS
+    one-pass calls, and the two-pass side none."""
+    import torch
+
+    from perfbench.harness import Cell
+    from perfbench.trace import Profiler
+    from sqtpu_torch.models import resnet
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_port_batchnorm import two_pass
+
+    run = train_cell_run(Cell(BN_CELL, ROOT), dev)
+    batch = run.draw()
+    one_pass = resnet.BatchNorm.forward
+
+    def two_pass_forward(bn, x):
+        if bn.training and bn.data_group is None:
+            return two_pass(bn, x)
+        return one_pass(bn, x)
+
+    out = {}
+    for name, forward in (("two_pass", two_pass_forward),
+                          ("one_pass", one_pass)):
+        resnet.BatchNorm.forward = forward
+        try:
+            run.step(*batch)
+            resnet.reset_bn_path_counts()
+            run.step(*batch)
+            counts = resnet.bn_path_counts()
+            step_ms = cuda_ms(lambda: run.step(*batch), 5)
+            summary = Profiler(dev, BN_PROFILED_STEPS).run(
+                lambda: run.step(*batch))
+        finally:
+            resnet.BatchNorm.forward = one_pass
+        kernels = {k: v * 1e3 / BN_PROFILED_STEPS
+                   for k, v in summary["by_name"].items()
+                   if any(n in k.lower() for n in BN_KERNELS)}
+        out[name] = {
+            "counts": counts, "step_ms": step_ms,
+            "busy_ms": summary["busy_s"] * 1e3 / BN_PROFILED_STEPS,
+            "span_ms": summary["span_s"] * 1e3 / BN_PROFILED_STEPS,
+            "batchnorm_ms": sum(kernels.values()),
+            "kernels_ms": dict(sorted(kernels.items(),
+                                      key=lambda kv: -kv[1]))}
+        progress(f"BatchNorm {name}: counts {counts}, step "
+                 f"{step_ms:.2f} ms (profiled span "
+                 f"{out[name]['span_ms']:.2f}, busy "
+                 f"{out[name]['busy_ms']:.2f}), around BatchNorm "
+                 f"{out[name]['batchnorm_ms']:.2f} ms a step"
+                 + "".join(f"\n    {v:8.3f} ms  {k[:150]}"
+                           for k, v in out[name]["kernels_ms"].items()))
+    del run
+    torch.cuda.empty_cache()
+    want = {"one_pass": N_BATCH_NORMS, "data_group": 0, "eval": 0}
+    if out["one_pass"]["counts"] != want:
+        raise RuntimeError(f"a step counts {out['one_pass']['counts']}, "
+                           f"expected {want}")
+    if out["two_pass"]["counts"]["one_pass"]:
+        raise RuntimeError("the two-pass step took the one-pass path")
+    return out
 
 
 def registers_of(ptxas: str, entry: str):
@@ -4845,6 +4948,10 @@ def main() -> int:
     waits = phase_stream_waits(dev)
     progress("phase 40 an eval or corrector batch waits for the stream at "
              "its five reads alone, make_batch never")
+    batchnorm = phase_batchnorm(dev)
+    progress(f"phase 41 the ssl step counts {N_BATCH_NORMS} one-pass "
+             "BatchNorm calls; its BatchNorm kernels timed against the "
+             "two-pass formulation's")
     f1_runs = {"ssl1_bf16": bf16["trainer"],
                "ssl1_bf16_profiled": bf16["trainer_profiled"],
                "keras_rot_fixed": krf["trainer"],
@@ -5013,7 +5120,8 @@ def main() -> int:
                       "launcher_ssl1_grid_nccl": launcher_nccl,
                       "bench_ranks": {k: v for k, v in bench_ranks.items()
                                       if k != "line"},
-                      "stream_waits": waits}), flush=True)
+                      "stream_waits": waits, "batchnorm": batchnorm}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,12 @@ model built here starts from flax's initial distribution
 ``dtype`` is flax's: with ``torch.bfloat16`` every convolution and dense
 layer of the encoder and of ``fc1``/``fc2`` casts its input and its
 parameters to bfloat16 and computes there (:class:`Conv2d`,
-:class:`Linear`); BatchNorm reduces and normalizes in float32 and casts
-its output back; the heads compute in float32 (flax promotes their
-bfloat16 input against float32 kernels). The parameters, their
+:class:`Linear`); a train-mode BatchNorm takes its moments in float32
+from the bfloat16 input in one pass, normalizes in float32 and writes its
+output in bfloat16 (the encoders' activations are channels-last; in eval
+mode, or on an NCHW input, it casts its input to float32 and its output
+back); the heads compute in float32 (flax promotes their bfloat16
+input against float32 kernels). The parameters, their
 gradients and the running statistics stay float32, and so do the four
 outputs.
 
@@ -47,6 +50,26 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.01  # torch convention: 1 - flax's 0.99
 
 
+# Calls of BatchNorm.forward by path since the last reset_bn_path_counts():
+# plain integers, read by bn_path_counts().
+_bn_paths = dict.fromkeys(("one_pass", "data_group", "eval"), 0)
+
+
+def bn_path_counts() -> dict:
+    """Calls of :class:`BatchNorm` by path since the last
+    :func:`reset_bn_path_counts`: ``one_pass`` (train mode on this rank's
+    batch, the recompute of a checkpointed stage included),
+    ``data_group`` (train mode over a data group, :class:`_GlobalBatchNorm`)
+    and ``eval`` (the running statistics). No device value, no sync."""
+    return dict(_bn_paths)
+
+
+def reset_bn_path_counts() -> None:
+    """Set every count of :func:`bn_path_counts` to 0."""
+    for path in _bn_paths:
+        _bn_paths[path] = 0
+
+
 class BatchNorm(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` with flax's train-mode semantics: the batch is
     normalized with its biased variance (as torch does), and the running
@@ -56,35 +79,65 @@ class BatchNorm(nn.BatchNorm2d):
     With ``update_stats`` off (the recompute of a checkpointed stage) the
     running statistics stay as they are.
 
+    In train mode on this rank's batch a channels-last input is read once
+    a pass, in the dtype it arrives in: ``F.batch_norm`` takes the moments
+    of a bfloat16 input in float32 against the float32 parameters,
+    normalizes in float32 and writes the output in bfloat16 (flax's
+    ``dtype``: float32 reductions, then ``asarray(y, dtype)``); its
+    backward reads the bfloat16 gradient and writes the input's in
+    bfloat16, the weight's and bias's in float32. The running statistics
+    move with the moments that normalization took (:meth:`_one_pass`).
+
     With a ``data_group`` (the ranks that hold the other rows of the
     global batch, :func:`use_global_batch_stats`) the train-mode
     statistics are the global batch's, as flax's are under a sharded
     ``jit`` (:class:`_GlobalBatchNorm`), and the running statistics move
-    with the global moments."""
+    with the global moments. That path and eval mode compute in the
+    parameters' dtype and cast the output to ``x``'s."""
 
     update_stats = True
     data_group = None
 
     def forward(self, x):
-        """Statistics and normalization in the parameters' dtype; the
-        output in ``x``'s (flax: float32 reductions, then ``asarray(y,
-        dtype)``)."""
-        return self._forward(x.to(self.weight.dtype)).to(x.dtype)
-
-    def _forward(self, x):
         if not self.training:
-            return super().forward(x)
-        if self.data_group is not None:
-            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
-                                                  self.eps, self.data_group)
-            if self.update_stats:
-                self._update_running(mean, var)
-            return y
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+            _bn_paths["eval"] += 1
+            return super().forward(x.to(self.weight.dtype)).to(x.dtype)
+        if self.data_group is None:
+            _bn_paths["one_pass"] += 1
+            return self._one_pass(x)
+        _bn_paths["data_group"] += 1
+        return self._global(x.to(self.weight.dtype)).to(x.dtype)
+
+    def _one_pass(self, x):
+        """Train mode on this rank's batch. The running-statistics outputs
+        of ``F.batch_norm``, at momentum 1 into fresh zeros, are the
+        batch's mean and unbiased variance; (n − 1)/n turns the latter
+        back into the biased one flax keeps. The call is the same with
+        ``update_stats`` off, so a checkpointed stage's recompute saves
+        the tensors its forward saved.
+
+        An input of another dtype than the parameters' that is not
+        channels-last (the encoders' activations are) is cast to theirs
+        first and the output back: on the card, ATen's kernels for such an
+        NCHW input sum the backward's per-channel terms far less
+        accurately than cuDNN's float32 ones (the bias gradient 2e-3 off
+        float64 at the stem's shape, against 1e-7)."""
+        if x.dtype != self.weight.dtype and not x.is_contiguous(
+                memory_format=torch.channels_last):
+            return self._one_pass(x.to(self.weight.dtype)).to(x.dtype)
+        mean, var = self.running_mean.new_zeros(
+            (2,) + self.running_mean.shape)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
                          self.eps)
         if self.update_stats:
-            with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            n = x.numel() // x.shape[1]  # the backward keeps var: no in-place
+            self._update_running(mean, var * ((n - 1) / n))
+        return y
+
+    def _global(self, x):
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                              self.eps, self.data_group)
+        if self.update_stats:
             self._update_running(mean, var)
         return y
 

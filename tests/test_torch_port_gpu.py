@@ -54,6 +54,11 @@ z cull and in float64, and launches once an IoU call on the card. Under
 ``torch.cuda.set_sync_debug_mode("error")`` a closed-loop batch from the
 sample to the caller's errors, a corrector forward and ``make_batch``
 never wait for the stream, and give what they give with the mode off.
+The train-mode BatchNorm's one pass over bf16 activations is held, with
+the two-pass formulation it replaced, against float64 at the ssl step's
+stem and layer-4 shapes; under the profiler it launches no ``var_mean``
+reduction and, on channels-last input, no dtype cast; an ssl step counts
+20 one-pass calls.
 """
 
 import contextlib
@@ -1167,3 +1172,189 @@ def test_no_stream_sync_on_card(cuda_device, path, model):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# BatchNorm shapes of the ssl cell's step (batch 512, 256² images): the
+# stem's output and a layer-4 block's.
+BN_CARD_SHAPES = {"stem": (512, 64, 128, 128), "layer4": (512, 512, 8, 8)}
+# On the card the one-pass kernels (ATen's) and the two-pass formulation
+# (cuDNN's float32 kernels) sum in other orders, so a bf16 element near 0
+# may round differently: the output and the input's gradient are held
+# within 1 ulp of float64's value rounded to bf16, or BN_CARD_FAR of the
+# tensor's largest magnitude (a 256th of its bf16 ulp there). ATen's
+# Welford mean is less exact than cuDNN's, and the weight's gradient
+# carries that error times the cotangent's per-channel offset: it is held
+# within BN_GRAD_RATIO of the two-pass formulation's own error against
+# float64 (8.7 and 3.2 at these shapes on an NVIDIA H100 80GB HBM3,
+# 700.00 W; 2.4e-4 and 2.3e-3 of the largest), the bias's within 1e-6.
+BN_CARD_FAR = 2.0 ** -16
+BN_GRAD_RATIO = 16.0
+
+
+def batch_norm_float64(bn, x, dy) -> dict:
+    """A train-mode step of ``bn`` (before it runs) in float64 from ``x``
+    and the cotangent ``dy``: the output, the gradients of the input, the
+    weight and the bias, and the running statistics it leaves."""
+    dims = (0, 2, 3)
+    xd, dyd = x.double(), dy.double()
+    n = x.numel() // x.shape[1]
+    mean = xd.mean(dims, keepdim=True)
+    var = ((xd - mean) ** 2).mean(dims, keepdim=True)
+    invstd = (var + bn.eps).rsqrt()
+    xhat = (xd - mean) * invstd
+    w = bn.weight.double()[None, :, None, None]
+    b = bn.bias.double()[None, :, None, None]
+    gb, gw = dyd.sum(dims), (dyd * xhat).sum(dims)
+    gx = w * invstd * (dyd - gb[None, :, None, None] / n
+                       - xhat * gw[None, :, None, None] / n)
+    m = bn.momentum
+    return {"y": xhat * w + b, "grad_x": gx, "grad_weight": gw,
+            "grad_bias": gb,
+            "running_mean": (1 - m) * bn.running_mean.double()
+            + m * mean.flatten(),
+            "running_var": (1 - m) * bn.running_var.double()
+            + m * var.flatten()}
+
+
+def batch_norm_errors(forward, bn, x, dy, want: dict) -> dict:
+    """One train-mode forward and backward of ``forward(x)`` (moving
+    ``bn``'s statistics) against ``want`` (:func:`batch_norm_float64`):
+    the output's and the input gradient's ``far_apart`` from float64's
+    values rounded to their dtype, the weight's and bias's gradients'
+    largest gaps against their largest magnitude, the running
+    statistics' relative gaps element by element."""
+    from test_torch_port_batchnorm import far_apart
+
+    x = x.clone().requires_grad_()
+    y = forward(x)
+    got = dict(zip(("grad_x", "grad_weight", "grad_bias"),
+                   torch.autograd.grad(y, (x, bn.weight, bn.bias), dy)))
+    got["y"] = y.detach()
+    out = {k: far_apart(got[k], want[k].to(got[k].dtype))
+           for k in ("y", "grad_x")}
+    for k in ("grad_weight", "grad_bias"):
+        out[k] = float((got[k].double() - want[k]).abs().max()
+                       / want[k].abs().max())
+    for k in ("running_mean", "running_var"):
+        out[k] = float(((getattr(bn, k).double() - want[k])
+                        / want[k]).abs().max())
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels_last", [False, True],
+                         ids=["nchw", "channels_last"])
+@pytest.mark.parametrize("shape", BN_CARD_SHAPES.values(),
+                         ids=BN_CARD_SHAPES.keys())
+def test_batchnorm_one_pass_against_float64_on_card(cuda_device, shape,
+                                                    channels_last):
+    """One train-mode BatchNorm forward and backward in bf16, by the port
+    and by the two-pass formulation it replaced, each against float64
+    (:func:`batch_norm_errors`): the output and the input's gradient
+    within 1 ulp or BN_CARD_FAR, the weight's gradient within
+    BN_GRAD_RATIO of the two-pass formulation's error, the bias's within
+    1e-6 and the running statistics within 1e-6 relative. An NCHW input
+    takes the float32 cast (``BatchNorm._one_pass``)."""
+    from test_torch_port_batchnorm import activation, bn_pair, two_pass
+
+    new, old = bn_pair(shape[1], 0, cuda_device)
+    x = activation(shape, torch.bfloat16, 1, channels_last, cuda_device)
+    dy = activation(shape, torch.bfloat16, 2, channels_last, cuda_device)
+    want = batch_norm_float64(new, x, dy)
+    errors = {"one_pass": batch_norm_errors(new, new, x, dy, want),
+              "two_pass": batch_norm_errors(lambda t: two_pass(old, t),
+                                            old, x, dy, want)}
+    got, base = errors["one_pass"], errors["two_pass"]
+    assert got["y"] <= BN_CARD_FAR and got["grad_x"] <= BN_CARD_FAR, errors
+    assert got["grad_weight"] <= BN_GRAD_RATIO * base["grad_weight"], errors
+    assert got["grad_bias"] <= 1e-6, errors
+    assert max(got["running_mean"], got["running_var"]) <= 1e-6, errors
+
+
+def device_kernels(fn) -> set:
+    """Names of the kernels ``fn()`` launches on the card, under
+    ``torch.profiler`` (after one call outside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+# Pieces of the names of the kernels the two-pass formulation launched
+# around its normalization: the dtype casts (bf16 to float32 and back)
+# and ``var_mean``'s reduction.
+CAST_KERNELS = ("direct_copy", "bfloat16_copy")
+VAR_MEAN_KERNEL = "reduce_kernel"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels_last", [False, True],
+                         ids=["nchw", "channels_last"])
+def test_batchnorm_one_pass_launches_no_var_mean_on_card(cuda_device,
+                                                         channels_last):
+    """Under ``torch.profiler`` a bf16 train-mode BatchNorm forward and
+    backward launches no ``var_mean`` reduction, where the two-pass
+    formulation launches one and the casts; on a channels-last input (the
+    encoders' activations) it launches no dtype-converting copy either."""
+    from test_torch_port_batchnorm import activation, bn_pair, two_pass
+
+    new, old = bn_pair(64, 3, cuda_device)
+    x = activation((64, 64, 32, 32), torch.bfloat16, 4, channels_last,
+                   cuda_device).requires_grad_()
+    dy = torch.randn_like(x)
+    launched_by = {
+        name: device_kernels(lambda: torch.autograd.grad(
+            forward(x), (x, bn.weight, bn.bias), dy))
+        for name, forward, bn in (
+            ("one_pass", new, new),
+            ("two_pass", lambda t: two_pass(old, t), old))}
+
+    def launched(name, needle):
+        return [k for k in launched_by[name] if needle in k]
+
+    assert launched_by["one_pass"], launched_by
+    assert not launched("one_pass", VAR_MEAN_KERNEL), launched_by
+    assert launched("two_pass", VAR_MEAN_KERNEL), launched_by
+    for needle in CAST_KERNELS:
+        assert launched("two_pass", needle), launched_by
+        if channels_last:
+            assert not launched("one_pass", needle), launched_by
+
+
+@pytest.mark.gpu
+def test_ssl_step_counts_one_pass_batch_norms_on_card(cuda_device):
+    """A bf16 ssl step (flax's dtype, K1/K2) counts 20 one-pass
+    BatchNorm calls, one for each BatchNorm of ResNet-18, and no other;
+    each takes a channels-last bf16 input, so none casts."""
+    from sqtpu_torch.models import ResNetSQ
+    from sqtpu_torch.models.resnet import (
+        BatchNorm, bn_path_counts, reset_bn_path_counts,
+    )
+    from sqtpu_torch.training.loop import make_train_step
+    from sqtpu_torch.training.state import create_train_state
+    from sqtpu_torch.utils.config import TrainConfig
+
+    labels = torch.tensor(_params(np.random.default_rng(BF16_STEP_SEED), 8),
+                          device=cuda_device)
+    imgs = render_hard_auto(labels, 128, n_sweep=48, n_bisect=12,
+                            quantize=True)[..., None]
+    model = numpy_weights(ResNetSQ(dtype=torch.bfloat16),
+                          BF16_STEP_SEED).to(cuda_device)
+    inputs = []
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.register_forward_pre_hook(lambda m, args: inputs.append(
+                (args[0].dtype, args[0].is_contiguous(
+                    memory_format=torch.channels_last))))
+    cfg = TrainConfig(batch_size=8, dtype="bfloat16")
+    step = make_train_step(create_train_state(model, cfg), cfg)
+    reset_bn_path_counts()
+    assert torch.isfinite(step(imgs, labels))
+    assert bn_path_counts() == {"one_pass": 20, "data_group": 0, "eval": 0}
+    assert inputs == [(torch.bfloat16, True)] * 20
